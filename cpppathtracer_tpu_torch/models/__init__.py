@@ -1,0 +1,1 @@
+"""Part of the PyTorch/CUDA port (see the package docstring)."""

@@ -1,0 +1,234 @@
+"""Scene tables: one flat structure-of-arrays of all objects (counterpart
+of ``cpppathtracer_tpu/models/scene.py``).
+
+Material fields follow `include/material.h:21-29`: kd f32[N,3] (albedo,
+also scales emission), emission f32[N], smoothness f32[N] (Phong exponent
+1000**smoothness), reflectivity f32[N], ior f32[N], tex_id i32[N].
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from cpppathtracer_tpu_torch.types import MaterialType, PrimitiveType, resolve_device
+
+# Scenes with at least this many objects take the BVH in the JAX package
+# (`models/scene.py:42`); the port has no BVH yet.
+AUTO_BVH_THRESHOLD = 2048
+
+
+@dataclasses.dataclass
+class Scene:
+    """Flat SoA scene.  All tensors share leading dim N; padding objects
+    have prim_type == -1 and never intersect.  `type_perm` orders objects
+    as [spheres | platforms | cylinders | padding]; `type_counts` is
+    (n_sphere, n_platform, n_cylinder)."""
+
+    prim_type: torch.Tensor  # i32[N]
+    center: torch.Tensor  # f32[N,3]
+    radius: torch.Tensor  # f32[N]  (negative => inverted sphere normal)
+    y_pos: torch.Tensor  # f32[N]  platform plane height
+    height: torch.Tensor  # f32[N]  cylinder height
+    mat_type: torch.Tensor  # i32[N]
+    kd: torch.Tensor  # f32[N,3]
+    emission: torch.Tensor  # f32[N]
+    smoothness: torch.Tensor  # f32[N]
+    reflectivity: torch.Tensor  # f32[N]
+    ior: torch.Tensor  # f32[N]
+    tex_id: torch.Tensor  # i32[N]
+    type_perm: tuple = ()
+    type_counts: tuple = ()
+
+    @property
+    def num_objects(self) -> int:
+        return self.prim_type.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.center.device
+
+    def material_params(self):
+        """The material parameter sub-dict (albedo / roughness / IOR /
+        emission)."""
+        return {
+            "kd": self.kd,
+            "emission": self.emission,
+            "smoothness": self.smoothness,
+            "reflectivity": self.reflectivity,
+            "ior": self.ior,
+        }
+
+    def with_material_params(self, params) -> "Scene":
+        return dataclasses.replace(self, **params)
+
+
+@dataclasses.dataclass
+class _ObjSpec:
+    prim_type: int
+    center: tuple
+    radius: float
+    y_pos: float
+    height: float
+    mat_type: int
+    kd: tuple
+    emission: float
+    smoothness: float
+    reflectivity: float
+    ior: float
+    tex_id: int
+
+
+class SceneBuilder:
+    """Host-side scene authoring (`PathTracer::AddObject`,
+    `cuSrc/bvh.cu:22-29`), frozen into a `Scene` with `build()`."""
+
+    def __init__(self):
+        self._objs: list[_ObjSpec] = []
+
+    def __len__(self):
+        return len(self._objs)
+
+    def _add(self, **kw) -> int:
+        self._objs.append(_ObjSpec(**kw))
+        return len(self._objs) - 1
+
+    def _material(self, mat_type, kd, emission, smoothness, reflectivity, ior, tex_id):
+        return dict(
+            mat_type=int(mat_type),
+            kd=tuple(map(float, kd)),
+            emission=float(emission),
+            smoothness=float(smoothness),
+            reflectivity=float(reflectivity),
+            ior=float(ior),
+            tex_id=int(tex_id),
+        )
+
+    def add_sphere(self, center, radius, mat_type=MaterialType.DIFFUSE,
+                   kd=(1.0, 1.0, 1.0), emission=0.0, smoothness=0.0,
+                   reflectivity=0.0, ior=1.5, tex_id=-1) -> int:
+        """Negative radius inverts the near-root normal: the reference's
+        hollow-glass-shell trick (`cuSrc/object.cu:22-23`)."""
+        return self._add(
+            prim_type=int(PrimitiveType.SPHERE),
+            center=tuple(map(float, center)), radius=float(radius),
+            y_pos=0.0, height=0.0,
+            **self._material(mat_type, kd, emission, smoothness, reflectivity, ior, tex_id),
+        )
+
+    def add_platform(self, y_pos, mat_type=MaterialType.DIFFUSE,
+                     kd=(1.0, 1.0, 1.0), emission=0.0, smoothness=0.0,
+                     reflectivity=0.0, ior=1.5, tex_id=-1) -> int:
+        """Infinite plane perpendicular to y (`cuSrc/object.cu:37-48`)."""
+        return self._add(
+            prim_type=int(PrimitiveType.PLATFORM),
+            center=(0.0, 0.0, 0.0), radius=0.0, y_pos=float(y_pos), height=0.0,
+            **self._material(mat_type, kd, emission, smoothness, reflectivity, ior, tex_id),
+        )
+
+    def add_cylinder(self, center, radius, height, mat_type=MaterialType.DIFFUSE,
+                     kd=(1.0, 1.0, 1.0), emission=0.0, smoothness=0.0,
+                     reflectivity=0.0, ior=1.5, tex_id=-1) -> int:
+        """Y-aligned capped cylinder (`cuSrc/object.cu:50-112`)."""
+        return self._add(
+            prim_type=int(PrimitiveType.CYLINDER),
+            center=tuple(map(float, center)), radius=float(radius),
+            y_pos=0.0, height=float(height),
+            **self._material(mat_type, kd, emission, smoothness, reflectivity, ior, tex_id),
+        )
+
+    def build(self, device=None, pad_to: int | None = None, bvh: bool | None = None) -> Scene:
+        """Freeze to a `Scene` on `device` (the CUDA card by default).
+        `pad_to` rounds N up with inactive padding objects.  Scenes that
+        would take the BVH (`bvh=True`, or None with at least
+        AUTO_BVH_THRESHOLD objects) raise: the port has no BVH yet."""
+        n = len(self._objs)
+        m = n if pad_to is None else max(n, pad_to)
+        if m == 0:
+            raise ValueError("empty scene")
+        if bvh is None:
+            bvh = n >= AUTO_BVH_THRESHOLD
+        if bvh:
+            raise NotImplementedError("BVH scenes are not ported yet")
+        dev = resolve_device(device)
+
+        def arr(field, dtype=np.float32, dim=None):
+            out = np.zeros((m,) if dim is None else (m, dim), dtype)
+            for i, o in enumerate(self._objs):
+                out[i] = getattr(o, field)
+            return torch.from_numpy(out).to(dev)
+
+        prim_type = np.full(m, -1, np.int32)
+        for i, o in enumerate(self._objs):
+            prim_type[i] = o.prim_type
+        order = np.concatenate(
+            [np.where(prim_type == t)[0] for t in (0, 1, 2)]
+            + [np.where(prim_type < 0)[0]]
+        )
+        return Scene(
+            type_perm=tuple(int(i) for i in order),
+            type_counts=tuple(int((prim_type == t).sum()) for t in (0, 1, 2)),
+            prim_type=torch.from_numpy(prim_type).to(dev),
+            center=arr("center", dim=3),
+            radius=arr("radius"),
+            y_pos=arr("y_pos"),
+            height=arr("height"),
+            mat_type=arr("mat_type", np.int32),
+            kd=arr("kd", dim=3),
+            emission=arr("emission"),
+            smoothness=arr("smoothness"),
+            reflectivity=arr("reflectivity"),
+            ior=arr("ior"),
+            tex_id=arr("tex_id", np.int32),
+        )
+
+
+def demo_scene(seed: int = 0) -> SceneBuilder:
+    """The reference's procedural demo scene with deterministic RNG
+    (`cppSrc/video_renderer.cpp:39-118`): 20 random materials, a floor
+    platform at y=0, and spheres/cylinders marching z in [-550, 550) step
+    15.  Glass objects get a nested negative-radius sphere shell half of
+    the time; the reference's un-memset inner object is a sphere even for
+    cylinders (`video_renderer.cpp:108-115`)."""
+    rng = np.random.RandomState(seed)
+    rnd = lambda: float(rng.uniform())
+
+    mats = [dict(mat_type=MaterialType.DIFFUSE, kd=(0.95, 0.95, 0.95))]
+    for _ in range(1, 20):
+        kd = (rnd(), rnd(), rnd())
+        kind = int(rnd() * 2048) % 4
+        if kind == 1:
+            mats.append(dict(mat_type=MaterialType.METAL, kd=kd,
+                             smoothness=rnd() * 4 + 1.0, reflectivity=rnd() * 0.8))
+        elif kind == 2:
+            mats.append(dict(
+                mat_type=MaterialType.MIRROR,
+                kd=(0.5 + 0.5 * rnd(), 0.5 + 0.5 * rnd(), 0.5 + 0.5 * rnd()),
+                smoothness=rnd() * 4 + 0.5,
+            ))
+        elif kind == 3:
+            mats.append(dict(mat_type=MaterialType.GLASS, kd=(1.0, 1.0, 1.0),
+                             smoothness=rnd() * 4 + 2.0, ior=rnd() * 2 + 1.2))
+        else:
+            mats.append(dict(mat_type=MaterialType.DIFFUSE, kd=kd))
+
+    b = SceneBuilder()
+    b.add_platform(0.0, **mats[0])
+    for z in range(-550, 550, 15):
+        m = mats[rng.randint(20)]
+        if int(rnd() * 2048) % 2 == 0:
+            radius = rnd() * 15.0 + 1.0
+            center = (rnd() * 300.0 - 150.0, radius, float(z))
+            b.add_sphere(center, radius, **m)
+            if m["mat_type"] == MaterialType.GLASS and rnd() > 0.5:
+                b.add_sphere(center, 0.01 - radius, **m)
+        else:
+            radius = rnd() * 15.0 + 1.0
+            height = radius / 2 + rnd() * 20.0
+            center = (rnd() * 300.0 - 150.0, height / 2, float(z))
+            b.add_cylinder(center, radius, height, **m)
+            if m["mat_type"] == MaterialType.GLASS and rnd() > 0.5:
+                b.add_sphere(center, 0.01 - radius, **m)
+    return b
