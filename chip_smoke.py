@@ -3,11 +3,13 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``cpppathtracer_tpu_torch/csrc``, holds each
-against its plain PyTorch version on the card, drives the main path
+against its plain PyTorch version on the card, drives the serving path
 (``render_radiance`` on ``demo_scene(0)`` at 1024^2 x 64 spp x depth 8 with
 the bench camera, then 16 progressive 1280x720 frames with the denoiser)
-through the kernels, times each kernel beside its bound, its plain version
-and a PyTorch library yardstick, and prints:
+and the training path (the fwd+bwd step of bench.py:31-54 at the same
+size, its gradients against the plain backward's, three steps of
+``inverse.fit``) through the kernels, times each kernel beside its bound,
+its plain version and a PyTorch library yardstick, and prints:
   - the card's name and power limit (nvidia-smi);
   - one JSON line {"kernels": [...]};
   - as the last line, {"ok": true, "device": {...}}.
@@ -35,9 +37,16 @@ FP32_OPS_PER_S = 67e12
 # csrc/mega_trace.cu (adds, multiplies, divides, square roots, compares,
 # selects and minima each count one; transcendentals count one).
 OPS_SPHERE, OPS_PLATFORM, OPS_CYLINDER, OPS_RAY_BOUNCE = 33, 10, 87, 240
+# The backward (csrc/mega_bwd.cuh) per ray-bounce that hit, counted the same
+# way: the bounce body twice (forward sweep and reverse sweep, no winner
+# search: 2 x 240) and its adjoint: shade_bwd 330 (to_world 90, the
+# refraction chain 70, reflect 27, Phong 20, Schlick 20, the rest 100),
+# hit_attrs_bwd 90, the carry and epilogue 45, 13 accumulations.
+OPS_BWD_RAY_BOUNCE = 2 * 240 + 330 + 90 + 45 + 13
 
 W = H = 1024
 SPP, DEPTH = 64, 8
+FORWARD_KERNELS = ("mega_trace", "stream_compact", "stream_expand")
 CAMERA = dict(origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0))
 
 
@@ -99,6 +108,74 @@ def compare_trace(got, ref, what):
     return max_err
 
 
+def compare_bwd(got, ref, what):
+    """Kernel vs plain cotangents of one sample.  ct_o and ct_d: all
+    finite, and on at least 99.9% of the lanes each 3-vector within
+    1e-5 + 1e-4 x its largest component (float32 cancellation leaves a
+    component much smaller than its lane's others no more digits than
+    that).  ct_ts and ct_trt: each field's row within a relative L2 error
+    of 1e-4 (the kernel's atomics add in another order).  Returns the
+    largest absolute difference."""
+    shares, max_err = [], 0.0
+    for g, p in ((got[2], ref[2]), (got[3], ref[3])):
+        g, p = torch.stack(g), torch.stack(p)
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: non-finite ray cotangents")
+        diff = (g - p).abs()
+        shares.append(float((diff.amax(0) <= 1e-5 + 1e-4 * p.abs().amax(0)).float().mean()))
+        max_err = max(max_err, float(diff.max()))
+    rel = []
+    for g, p in ((got[0], ref[0]), (got[1], ref[1])):
+        rel.append(float(((g - p).norm(dim=1) / p.norm(dim=1).clamp(min=1e-30)).max()))
+        max_err = max(max_err, float((g - p).abs().max()))
+    log(f"[check] {what}: ct_o / ct_d lanes within 1e-4 of their scale {shares[0]:.6f} / "
+        f"{shares[1]:.6f}; worst table row relative L2 ct_ts {rel[0]:.3e}, ct_trt {rel[1]:.3e}; "
+        f"max |diff| {max_err:.3e}")
+    if min(shares) < 0.999 or max(rel) > 1e-4:
+        raise AssertionError(f"{what}: mega_bwd disagrees with its plain version")
+    return max_err
+
+
+def cosine_and_ratio(a, b):
+    a, b = a.flatten().double(), b.flatten().double()
+    return float(a @ b / (a.norm() * b.norm())), float(a.norm() / b.norm())
+
+
+def profile_device(fn, what):
+    """Device busy share and device time by kernel of fn(), under
+    torch.profiler (kernel events only: an aten op's own device time
+    repeats its kernels')."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: e.device_time_total
+    events.sort(key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    log(f"[profile] {what}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+        f"({busy_ms / wall_ms:.3f}), {sum(e.count for e in events)} device ops")
+    for e in events[:12]:
+        log(f"[profile] {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+
+
+@contextlib.contextmanager
+def plain_bwd():
+    """Route the sample's backward through mega_bwd_plain."""
+    from cpppathtracer_tpu_torch.ops import mega
+    from cpppathtracer_tpu_torch.ops.cuda import mega_bwd_kernel
+
+    saved = mega.mega_bwd
+    mega.mega_bwd = mega_bwd_kernel.mega_bwd_plain
+    try:
+        yield
+    finally:
+        mega.mega_bwd = saved
+
+
 @contextlib.contextmanager
 def plain_path():
     """Route the megakernel path through the plain PyTorch versions."""
@@ -125,7 +202,9 @@ def main():
     from cpppathtracer_tpu_torch.ops.cuda.compact_kernel import (
         stream_compact, stream_compact_plain, stream_expand, stream_expand_plain,
     )
+    from cpppathtracer_tpu_torch.inverse import InverseConfig, fit
     from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import build_geom_rows
+    from cpppathtracer_tpu_torch.ops.cuda.mega_bwd_kernel import mega_bwd, mega_bwd_plain
     from cpppathtracer_tpu_torch.ops.cuda.mega_kernel import (
         build_tables_T, mega_trace, mega_trace_plain,
     )
@@ -169,9 +248,24 @@ def main():
     trace_args = (o, d, pix, samp, 0, geom, ts, trt)
     errs = {}
     for depth in (1, 8):
-        got = mega_trace(*trace_args, counts=gs.counts, depth=depth)
+        got = mega_trace(*trace_args, counts=gs.counts, depth=depth, with_o=True)
         ref = mega_trace_plain(*trace_args, counts=gs.counts, depth=depth)
         errs[f"mega_d{depth}"] = compare_trace(got, ref, f"mega_trace depth {depth}, 1024^2 primaries")
+
+    # the backward on the depth-8 trace's winner planes, random cotangents
+    hits8 = torch.stack(got[6]).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cts = [torch.randn(r, device=dev, generator=gen) for _ in range(13)]
+    bwd_args = (o, d, pix, samp, 0, ts, trt, hits8, cts)
+    got_b = mega_bwd(*bwd_args, with_carry=True)
+    err_bwd = compare_bwd(got_b, mega_bwd_plain(*bwd_args), "mega_bwd depth 8, 1024^2 primaries")
+    carry = got_b[4]
+    fwd_final = [*got[8], *got[1], *got[2], got[3]]
+    same = [torch.equal(a, b) for a, b in zip([*carry[0], *carry[1], *carry[2], carry[3]], fwd_final)]
+    log(f"[check] mega_bwd's forward sweep: final o, d, thru, missed bitwise equal to "
+        f"mega_trace's on {sum(same)} of 10 planes")
+    if not all(same):
+        raise AssertionError("the backward's rebuilt carry differs from mega_trace's")
 
     # phase A as the main path runs it, then the compaction and phase B
     out_a = mega_trace(*trace_args, counts=gs.counts, depth=2, with_o=True)
@@ -222,8 +316,8 @@ def main():
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kb.LAUNCHES)
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"main path skipped a kernel: {launches}")
+    if not all(launches[k] > 0 for k in FORWARD_KERNELS) or launches["mega_bwd"]:
+        raise AssertionError(f"the render skipped a kernel or ran the backward: {launches}")
     if not (torch.isfinite(rad).all() and rad.shape == (r, 3) and torch.isfinite(n0).all()):
         raise AssertionError("main path output is not finite or has the wrong shape")
     log(f"[render] 1024^2 x {SPP} spp x d{DEPTH}: {dt * 1e3:.1f} ms, "
@@ -256,30 +350,79 @@ def main():
     dt_p = time.perf_counter() - t0
     if not (np.isfinite(frame).all() and frame.shape == (720, 1280, 3)):
         raise AssertionError("progressive frame is not finite")
-    if not all(v > 0 for v in kb.LAUNCHES.values()):
+    if not all(kb.LAUNCHES[k] > 0 for k in FORWARD_KERNELS) or kb.LAUNCHES["mega_bwd"]:
         raise AssertionError(f"progressive loop skipped a kernel: {dict(kb.LAUNCHES)}")
     log(f"[progressive] 16 frames 1280x720 x1 spp x d{DEPTH} + denoise: "
         f"{dt_p * 1e3 / 16:.2f} ms/frame, launches {dict(kb.LAUNCHES)}")
 
     # ---- where a sample's time goes: device time by kernel over 4 samples
-    from torch.profiler import ProfilerActivity, profile
+    profile_device(lambda: render_radiance(scene, camera, sky, spp=4, max_depth=DEPTH, seed=0),
+                   "4 samples")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        render_radiance(scene, camera, sky, spp=4, max_depth=DEPTH, seed=0)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernel events only: an aten op's own device time repeats its kernels'
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = lambda e: e.device_time_total
-    events.sort(key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
-    log(f"[profile] 4 samples: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-        f"({busy_ms / wall_ms:.3f}), {sum(e.count for e in events)} device ops")
-    for e in events[:12]:
-        log(f"[profile] {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    # ---- phase 5: the training path, bench.py:31-54 (fwd+bwd of sum(rad^2), grads for kd
+    # and emission) at 1024^2 x 64 spp x d8
+    def train_step(spp):
+        kd = scene.kd.clone().requires_grad_()
+        em = scene.emission.clone().requires_grad_()
+        s = scene.with_material_params({"kd": kd, "emission": em})
+        rad, _, _ = render_radiance(s, camera, sky, spp=spp, max_depth=DEPTH, seed=0)
+        loss = (rad * rad).sum()
+        g_kd, g_em = torch.autograd.grad(loss, (kd, em))
+        return loss.detach(), g_kd, g_em
 
-    # ---- phase 5: kernel times at the main path's shapes, and bounds
+    train_step(1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    loss, g_kd, g_em = train_step(SPP)
+    torch.cuda.synchronize()
+    dt_t = time.perf_counter() - t0
+    train_launches = dict(kb.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = dict(mega_trace=2 * SPP, stream_compact=SPP, stream_expand=SPP, mega_bwd=SPP)
+    if train_launches != want:
+        raise AssertionError(f"training step launches {train_launches}, expected {want}")
+    for name, g in (("kd", g_kd), ("emission", g_em)):
+        if not torch.isfinite(g).all() or not bool((g != 0).any()):
+            raise AssertionError(f"the {name} gradient is non-finite or all zero")
+    log(f"[train] fwd+bwd 1024^2 x {SPP} spp x d{DEPTH}: {dt_t * 1e3:.1f} ms/step, "
+        f"{rays / dt_t / 1e6:.1f} Mrays/s fwd+bwd, peak memory {peak_gib:.2f} GiB, "
+        f"launches {train_launches}, loss {float(loss):.6g}, |g_kd| {float(g_kd.norm()):.6g}, "
+        f"|g_emission| {float(g_em.norm()):.6g}")
+    profile_device(lambda: train_step(4), "training step, 4 spp")
+
+    # the same step at 1 spp, the kernel's backward vs the plain one
+    k_step = train_step(1)
+    with plain_bwd():
+        kb.reset_launches()
+        p_step = train_step(1)
+        if kb.LAUNCHES["mega_bwd"]:
+            raise AssertionError("the plain backward launched the kernel")
+    for name, a, b in (("kd", k_step[1], p_step[1]), ("emission", k_step[2], p_step[2])):
+        cos, ratio = cosine_and_ratio(a, b)
+        log(f"[train] kernel vs plain backward, {name} gradient at 1 spp: cosine {cos:.8f}, "
+            f"norm ratio {ratio:.8f}")
+        if cos <= 0.9999 or abs(ratio - 1) > 1e-3:
+            raise AssertionError(f"the {name} gradient differs from the plain backward's")
+
+    # three steps of inverse.fit with InverseConfig's defaults: the target is rendered from a
+    # copy of the scene whose albedos are perturbed
+    cfg = InverseConfig(fixed_samples=True)
+    gen_kd = torch.Generator(device=dev).manual_seed(1)
+    kd_true = (scene.kd + 0.2 * torch.rand(scene.kd.shape, device=dev, generator=gen_kd) - 0.1).clamp(0, 1)
+    with torch.no_grad():
+        target, _, _ = render_radiance(scene.with_material_params({"kd": kd_true}), camera, sky,
+                                       spp=cfg.spp, max_depth=cfg.max_depth, seed=cfg.seed)
+    t0 = time.perf_counter()
+    _, losses = fit(scene, camera, sky, target, cfg, steps=3)
+    dt_f = time.perf_counter() - t0
+    log(f"[train] inverse.fit, 3 steps at 1024^2 x {cfg.spp} spp x d{cfg.max_depth}: losses "
+        f"{losses}, {dt_f * 1e3 / 3:.1f} ms/step")
+    if not losses[2] < losses[0]:
+        raise AssertionError("inverse.fit's loss did not fall")
+
+    # ---- phase 6: kernel times at the main path's shapes, and bounds
     np_b = len(exp_planes)
     ops = ops_per_ray_bounce(gs.counts)
     work_a = live_ray_bounces(out_a[6])
@@ -329,6 +472,23 @@ def main():
     log(f"[kernels] mega_trace per sample (phase A + B): {ms_mega:.3f} ms, bound {bound_mega * 1e3:.4f} ms "
         f"({ops} ops per ray-bounce, {work_a} + {work_b} live ray-bounces; its {bytes_mega / 1e6:.1f} MB "
         f"alone bound it at {bytes_mega / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    # the backward at the training step's shapes: one sample, R = 1024^2, depth 8
+    live_bwd = int((hits8 >= 0).sum())
+    bytes_bwd = 4 * r * (6 + 2 + 13 + DEPTH + 6)
+    ops_s, bytes_s = OPS_BWD_RAY_BOUNCE * live_bwd / FP32_OPS_PER_S, bytes_bwd / HBM_BYTES_PER_S
+    bound_bwd = max(ops_s, bytes_s)
+    by_bwd = "operations" if ops_s > bytes_s else "bytes"
+    ms_bwd = time_ms(lambda: mega_bwd(*bwd_args), iters=10)
+    plain_bwd_ms = time_ms(lambda: mega_bwd_plain(*bwd_args), iters=1, warmup=1)
+    kernels.append(
+        dict(name="mega_bwd", route="cuda", source="cpppathtracer_tpu_torch/csrc/mega_bwd.cu",
+             replaces="cpppathtracer_tpu/ops/pallas/mega_bwd_kernel.py:389",
+             launches=train_launches["mega_bwd"], max_abs_err=err_bwd, ms=ms_bwd,
+             plain_ms=plain_bwd_ms, bound_ms=bound_bwd * 1e3, bound_by=by_bwd, library_ms=None))
+    log(f"[kernels] mega_bwd per sample: {ms_bwd:.3f} ms, bound {bound_bwd * 1e3:.4f} ms "
+        f"({OPS_BWD_RAY_BOUNCE} ops per ray-bounce that hit, {live_bwd} of them, "
+        f"{ops_s * 1e3:.4f} ms; its {bytes_bwd / 1e6:.1f} MB {bytes_s * 1e3:.4f} ms); "
+        f"plain {plain_bwd_ms:.1f} ms")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

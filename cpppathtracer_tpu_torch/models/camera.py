@@ -19,19 +19,19 @@ import math
 
 import torch
 
-from cpppathtracer_tpu_torch.ops.mathx import EPS, div_const
+from cpppathtracer_tpu_torch.ops.mathx import EPS, clamp, div_const
 from cpppathtracer_tpu_torch.types import resolve_device
 from cpppathtracer_tpu_torch.utils import rng as prng
 
 
 def _normalize(v):
     n2 = v[0] * v[0] + v[1] * v[1] + v[2] * v[2]
-    inv = torch.where(n2 > 0, 1.0 / torch.sqrt(torch.clamp(n2, min=EPS)), torch.zeros_like(n2))
+    inv = torch.where(n2 > 0, 1.0 / torch.sqrt(clamp(n2, lo=EPS)), torch.zeros_like(n2))
     return v * inv
 
 
 def _length(v):
-    return torch.sqrt(torch.clamp(v[0] * v[0] + v[1] * v[1] + v[2] * v[2], min=0.0))
+    return torch.sqrt(clamp(v[0] * v[0] + v[1] * v[1] + v[2] * v[2], lo=0.0))
 
 
 def _cross(a, b):
@@ -108,7 +108,7 @@ class Camera:
             for c in range(3)
         )
         n2 = t_rel[0] * t_rel[0] + t_rel[1] * t_rel[1] + t_rel[2] * t_rel[2]
-        inv = torch.where(n2 > 0, 1.0 / torch.sqrt(torch.clamp(n2, min=EPS)), torch.zeros_like(n2))
+        inv = torch.where(n2 > 0, 1.0 / torch.sqrt(clamp(n2, lo=EPS)), torch.zeros_like(n2))
         return o, tuple(t * inv for t in t_rel)
 
     def ray_gen(self, pixel_idx, sample_idx, seed):

@@ -38,7 +38,7 @@ NVCC_FLAGS = [
 ]
 
 # launches per wrapper since the last reset_launches()
-LAUNCHES = {"mega_trace": 0, "stream_compact": 0, "stream_expand": 0}
+LAUNCHES = {"mega_trace": 0, "stream_compact": 0, "stream_expand": 0, "mega_bwd": 0}
 
 
 def reset_launches():
@@ -124,6 +124,9 @@ _SIGNATURES = {
     # missed pos packed(ptr array) n_planes fills(ptr array) out n_alive R | stream
     "poca_stream_expand": [_P, _P, _P, _I, _P, _P, _P, _I, _P],
     "poca_compact_scratch_ints": [_I],
+    # o3 d3 pix samp ts trt hits | 13 cotangent planes | out_tab out_od carry |
+    # R n_pad depth seed smem_acc | stream
+    "poca_mega_bwd": [_P] * 11 + [_P] * 13 + [_P] * 3 + [_I] * 5 + [_P],
 }
 
 

@@ -150,7 +150,7 @@ def mega_trace_plain(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts
         hits.append(torch.where(hit, best_i, torch.full_like(best_i, -1)))
         u1, u2, u3, _ = uniforms4(seed, pixel_idx, sample_idx, 1 + start_bounce + b)
         bounce_dir, attenuation, emitted = planar.shade_p(
-            mats, hitrec["normal"], d, u1, u2, u3
+            mats, hitrec["normal"], d, u1, u2, u3, score_grad=False
         )
         live_hit = hit & alive
         lh = live_hit.to(torch.float32)

@@ -15,7 +15,8 @@ import math
 
 import torch
 
-from cpppathtracer_tpu_torch.ops.mathx import EPS, safe_div, schlick
+from cpppathtracer_tpu_torch.ops.bsdf import _score_weight
+from cpppathtracer_tpu_torch.ops.mathx import EPS, clamp, safe_div, schlick
 from cpppathtracer_tpu_torch.types import INF, MaterialType, PrimitiveType
 
 _TWO_PI = 2.0 * math.pi
@@ -73,7 +74,7 @@ def normalize_p(v):
     """Zero-guarded normalize (rsqrt of the squared length; 0 for a zero
     vector)."""
     n2 = dot_p(v, v)
-    inv = torch.where(n2 > 0, 1.0 / torch.sqrt(torch.clamp(n2, min=EPS)), _zero(n2))
+    inv = torch.where(n2 > 0, 1.0 / torch.sqrt(clamp(n2, lo=EPS)), _zero(n2))
     return scale_p(v, inv)
 
 
@@ -87,8 +88,8 @@ def to_world_p(ax, ay, az, n):
     (`ray_tracing_math.hpp:51-63`)."""
     nx, ny, nz = n
     use_x = torch.abs(nx) > torch.abs(ny)
-    inv_len_x = 1.0 / torch.sqrt(torch.clamp(nx * nx + nz * nz, min=EPS))
-    inv_len_y = 1.0 / torch.sqrt(torch.clamp(ny * ny + nz * nz, min=EPS))
+    inv_len_x = 1.0 / torch.sqrt(clamp(nx * nx + nz * nz, lo=EPS))
+    inv_len_y = 1.0 / torch.sqrt(clamp(ny * ny + nz * nz, lo=EPS))
     zero = _zero(nx)
     c = (
         torch.where(use_x, nz * inv_len_x, zero),
@@ -126,22 +127,25 @@ def phong_lobe_p(u1, u2, alpha):
     """The reference's Phong-style lobe in local coordinates
     (`material.cu:23-26`), with r^2 = -expm1(y) spelled
     -tanh(y/2) * (e^y + 1) as the JAX package does."""
-    log_u = torch.log(torch.clamp(u1, min=1e-38))
+    log_u = torch.log(clamp(u1, lo=1e-38))
     inv_a = 1.0 / alpha
     z = torch.exp(log_u * inv_a)
     y = 2.0 * log_u * inv_a
-    r = torch.sqrt(torch.clamp(-torch.tanh(0.5 * y) * (torch.exp(y) + 1.0), min=0.0))
+    r = torch.sqrt(clamp(-torch.tanh(0.5 * y) * (torch.exp(y) + 1.0), lo=0.0))
     phi = _TWO_PI * u2
     return r * torch.cos(phi), r * torch.sin(phi), z
 
 
-def shade_p(mat, normal, in_dir, u1, u2, u3):
-    """BSDF sampling, forward only (the JAX `shade_p` with
-    score_grad=False, as its megakernel calls it).
+def shade_p(mat, normal, in_dir, u1, u2, u3, score_grad=True, with_score=False):
+    """BSDF sampling (the JAX package's `planar.shade_p`).
 
     mat: dict of float32[R] tensors mat_type (int), smoothness,
     reflectivity, ior, emission, and kd_p, a planar vec3.
-    Returns (bounce_dir, attenuation, emitted), planar vec3s.
+    Returns (bounce_dir, attenuation, emitted), planar vec3s.  With
+    `score_grad` the attenuation carries the score-function weight
+    (ops/bsdf.py: 1.0 in value, the reflectivity and Fresnel gradients in
+    the backward); the megakernel's forward passes False.  `with_score`
+    also returns the weight f32[R].
     """
     mat_type = mat["mat_type"]
     kd = mat["kd_p"]
@@ -200,7 +204,15 @@ def shade_p(mat, normal, in_dir, u1, u2, u3):
     atten_on = is_glass | above_horizon
     zero = _zero(u1)
     attenuation = where_p(atten_on, kd, (zero, zero, zero))
+    w = None
+    if score_grad or with_score:
+        w = _score_weight(is_mirror, mirror_reflects, reflectivity, is_glass,
+                          glass_reflects, reflect_prob)
+        if score_grad:
+            attenuation = scale_p(attenuation, w)
     emitted = scale_p(kd, mat["emission"])
+    if with_score:
+        return bounce_dir, attenuation, emitted, w
     return bounce_dir, attenuation, emitted
 
 
@@ -293,11 +305,12 @@ def object_hit_attrs_p(prim_type, center, radius, y_pos, height, o, d, tmin, tma
 def gather_epilogue_p(table_s, table_r, o, d, tmin, tmax, gidx):
     """Winner record fetch (an index gather, never a matmul) plus hit
     attributes.  table_s f32[N, 13], table_r f32[N, 4] in the
-    ``ops/fast.py`` column layout; gidx i32[R] dense grouped indices.
-    Returns (hitrec, mats) dicts of planar tensors."""
+    ``ops/fast.py`` column layout (or float64 copies, whose records are
+    read back as float32); gidx i32[R] dense grouped indices.  Returns
+    (hitrec, mats) dicts of planar tensors."""
     idx = gidx.long()
-    rec = table_s[idx].T  # [F_S, R]
-    rec_r = table_r[idx].T  # [F_R, R]
+    rec = table_s[idx].T.to(torch.float32)  # [F_S, R]
+    rec_r = table_r[idx].T.to(torch.float32)  # [F_R, R]
     prim_type = rec[6].to(torch.int32)
     center = (rec[0], rec[1], rec[2])
     t, normal = object_hit_attrs_p(

@@ -17,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from cpppathtracer_tpu_torch.ops.mathx import div_const
+from cpppathtracer_tpu_torch.ops.mathx import clamp, div_const
 
 
 def _remainder(x, y: float):
@@ -56,7 +56,7 @@ def sky_uv(dir_xyz):
     d = +-y guarded (the reference gives NaN there)."""
     dx, dy, dz = dir_xyz[..., 0], dir_xyz[..., 1], dir_xyz[..., 2]
     safe_dx = torch.where(dx == 0, torch.full_like(dx, 1e-30), dx)
-    v = div_const(torch.asin(torch.clamp(dz, -1.0, 1.0)), math.pi) + 0.5
+    v = div_const(torch.asin(clamp(dz, -1.0, 1.0)), math.pi) + 0.5
     u = div_const(torch.atan(dy / safe_dx), 2.0 * math.pi)
     return u, v
 

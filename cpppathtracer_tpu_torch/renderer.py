@@ -65,14 +65,15 @@ def frame_step(scene, camera, sky_tex, state: AccumulatorState, seed: int,
     index, the optional denoiser, and the running-average mix.  Returns
     (new_state, display image f32[H,W,3] in [0,1])."""
     h, w = camera.height, camera.width
-    rad, n0, t0 = render_radiance(
-        scene, camera, sky_tex, spp=spp, max_depth=max_depth, seed=seed,
-        sample_offset=state.sample_idx * spp,
-    )
-    rad = rad.reshape(h, w, 3)
-    frame = denoise(rad, n0.reshape(h, w, 3), t0.reshape(h, w)) if use_denoise else rad
-    new_idx = state.sample_idx + 1
-    mixed = state.mix + div_const(torch.clamp(frame, 0.0, 1.0) - state.mix, float(new_idx))
+    with torch.no_grad():  # serving: no autograd graph, whatever requires grad
+        rad, n0, t0 = render_radiance(
+            scene, camera, sky_tex, spp=spp, max_depth=max_depth, seed=seed,
+            sample_offset=state.sample_idx * spp,
+        )
+        rad = rad.reshape(h, w, 3)
+        frame = denoise(rad, n0.reshape(h, w, 3), t0.reshape(h, w)) if use_denoise else rad
+        new_idx = state.sample_idx + 1
+        mixed = state.mix + div_const(torch.clamp(frame, 0.0, 1.0) - state.mix, float(new_idx))
     return AccumulatorState(mix=mixed, sample_idx=new_idx), mixed
 
 

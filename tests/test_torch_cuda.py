@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from cpppathtracer_tpu_torch.models.camera import Camera
-from cpppathtracer_tpu_torch.models.scene import demo_scene
+from cpppathtracer_tpu_torch.models.scene import SceneBuilder, demo_scene
+from cpppathtracer_tpu_torch.ops import mega
 from cpppathtracer_tpu_torch.ops.cuda import build as kb
 from cpppathtracer_tpu_torch.ops.cuda.compact_kernel import (
     stream_compact,
@@ -22,6 +23,7 @@ from cpppathtracer_tpu_torch.ops.cuda.compact_kernel import (
     stream_expand_plain,
 )
 from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import build_geom_rows
+from cpppathtracer_tpu_torch.ops.cuda.mega_bwd_kernel import mega_bwd, mega_bwd_plain
 from cpppathtracer_tpu_torch.ops.cuda.mega_kernel import build_tables_T, mega_trace, mega_trace_plain
 from cpppathtracer_tpu_torch.ops.fast import group_scene
 from cpppathtracer_tpu_torch.utils.rng import uniforms4
@@ -124,3 +126,109 @@ def test_wrappers_check_their_arguments(dev):
         mega_trace(*bad, counts=gs.counts, depth=2)
     with pytest.raises(ValueError):
         mega_trace(*args, counts=gs.counts, depth=2, alive_mask=torch.zeros(R, device=dev))
+
+
+# ------------------------------------------------------------- backward
+
+
+def _bwd_inputs(dev, gs, width, depth, seed=0):
+    """1024^2-style primaries of the bench camera, their winner planes from
+    mega_trace, and random cotangents from a seeded generator."""
+    cam = Camera.make(width, width, origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0),
+                      device=dev)
+    r = width * width
+    pix = torch.arange(r, dtype=torch.int32, device=dev)
+    samp = torch.full((r,), 5, dtype=torch.int32, device=dev)
+    o, d = cam.ray_gen_planar(pix, samp, seed)
+    o, d = tuple(c.contiguous() for c in o), tuple(c.contiguous() for c in d)
+    ts, trt = build_tables_T(gs)
+    out = mega_trace(o, d, pix, samp, seed, build_geom_rows(gs), ts, trt, counts=gs.counts,
+                     depth=depth, with_o=True)
+    g = torch.Generator(device=dev).manual_seed(0)
+    ct = [torch.randn(r, device=dev, generator=g) for _ in range(13)]
+    return (o, d, pix, samp, seed, ts, trt, torch.stack(out[6]).contiguous(), ct), out
+
+
+def _check_bwd(got, ref):
+    """chip_smoke.py's bounds.  ct_o and ct_d: all finite, and on at least
+    99.9% of the lanes each 3-vector within 1e-5 + 1e-4 x its largest
+    component (float32 cancellation leaves a component much smaller than
+    its lane's others no more correct digits than that, in the kernel and
+    the plain version alike).  ct_ts and ct_trt: each field's row within a
+    relative L2 error of 1e-4 (the kernel's atomics add in another
+    order)."""
+    for g, p in ((got[2], ref[2]), (got[3], ref[3])):
+        g, p = torch.stack(g), torch.stack(p)
+        assert torch.isfinite(g).all()
+        close = (g - p).abs().amax(0) <= 1e-5 + 1e-4 * p.abs().amax(0)
+        assert float(close.float().mean()) >= 0.999
+    for g, p in ((got[0], ref[0]), (got[1], ref[1])):
+        err = (g - p).norm(dim=1) / p.norm(dim=1).clamp(min=1e-30)
+        assert float(err.max()) <= 1e-4, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,depth", [(64, 1), (64, 8), (1024, 1), (1024, 8)])
+def test_mega_bwd_matches_plain_on_card(dev, width, depth):
+    """mega_bwd against mega_bwd_plain on the demo scene, and its rebuilt
+    final carry bitwise equal to mega_trace's outputs (the two kernels
+    share the bounce body)."""
+    gs = group_scene(demo_scene(0).build(device=dev))
+    args, out = _bwd_inputs(dev, gs, width, depth)
+    kb.reset_launches()
+    got = mega_bwd(*args, with_carry=True)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["mega_bwd"] == 1
+    _check_bwd(got, mega_bwd_plain(*args))
+    carry = got[4]
+    for a, b in zip([*carry[0], *carry[1], *carry[2], carry[3]], [*out[8], *out[1], *out[2], out[3]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_mega_bwd_global_atomics_on_card(dev):
+    """A scene of 1,100 spheres pads its tables past SMEM_ACC_MAX_PAD, so
+    the kernel adds the table cotangents with global atomics."""
+    rng = np.random.RandomState(3)
+    b = SceneBuilder()
+    b.add_platform(0.0)
+    for _ in range(1100):
+        b.add_sphere((rng.uniform(-150, 150), rng.uniform(1, 30), rng.uniform(-550, 550)),
+                     rng.uniform(1, 8), mat_type=int(rng.randint(0, 4)), smoothness=1.5,
+                     reflectivity=0.5, kd=tuple(rng.uniform(0.2, 0.9, 3)))
+    gs = group_scene(b.build(device=dev))
+    args, _ = _bwd_inputs(dev, gs, 256, 4)
+    assert args[5].shape[1] > 1024
+    _check_bwd(mega_bwd(*args), mega_bwd_plain(*args))
+
+
+@pytest.mark.gpu
+def test_mega_sample_grads_kernel_vs_plain_on_card(dev, monkeypatch):
+    """The autograd Function's gradients (kd, emission, camera origin)
+    through the kernel and through the plain backward: cosine > 0.9999 and
+    norms within 1e-3."""
+    from cpppathtracer_tpu_torch.integrator import render_radiance
+    from cpppathtracer_tpu_torch.ops.texture import procedural_sky
+
+    scene = demo_scene(0).build(device=dev)
+    sky = torch.from_numpy(procedural_sky(64, 64)).to(dev)
+
+    def grads():
+        kd = scene.kd.clone().requires_grad_()
+        em = scene.emission.clone().requires_grad_()
+        cam = Camera.make(256, 256, origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0),
+                          device=dev)
+        origin = cam.origin.clone().requires_grad_()
+        s = scene.with_material_params({"kd": kd, "emission": em})
+        rad, _, _ = render_radiance(s, cam.replace(origin=origin), sky, spp=2, max_depth=8)
+        return torch.autograd.grad((rad * rad).sum(), (kd, em, origin))
+
+    kb.reset_launches()
+    k = grads()
+    assert kb.LAUNCHES["mega_bwd"] == 2
+    monkeypatch.setattr(mega, "mega_bwd", mega_bwd_plain)
+    p = grads()
+    for a, b in zip(k, p):
+        a, b = a.flatten().double(), b.flatten().double()
+        assert float(a @ b / (a.norm() * b.norm())) > 0.9999
+        assert abs(float(a.norm() / b.norm()) - 1) < 1e-3
