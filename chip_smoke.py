@@ -5,11 +5,15 @@
 Builds the CUDA kernels from ``cpppathtracer_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card, drives the serving path
 (``render_radiance`` on ``demo_scene(0)`` at 1024^2 x 64 spp x depth 8 with
-the bench camera, then 16 progressive 1280x720 frames with the denoiser)
-and the training path (the fwd+bwd step of bench.py:31-54 at the same
-size, its gradients against the plain backward's, three steps of
-``inverse.fit``) through the kernels, times each kernel beside its bound,
-its plain version and a PyTorch library yardstick, and prints:
+the bench camera, then 16 progressive 1280x720 frames with the denoiser),
+the training path (the fwd+bwd step of bench.py:31-54 at the same size,
+its gradients against the plain backward's, three steps of
+``inverse.fit``) and the BVH path (``big_scene(16384)`` through the
+per-bounce wavefront path at 1024^2 x 16 spp x depth 8, then 16
+progressive 1280x720 frames; the dense winner launch on the same path
+with POCA_BVH=0 POCA_MEGA=0) through the kernels, times each kernel
+beside its bound, its plain version and a PyTorch library yardstick, and
+prints:
   - the card's name and power limit (nvidia-smi);
   - one JSON line {"kernels": [...]};
   - as the last line, {"ok": true, "device": {...}}.
@@ -21,9 +25,12 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -44,8 +51,19 @@ OPS_SPHERE, OPS_PLATFORM, OPS_CYLINDER, OPS_RAY_BOUNCE = 33, 10, 87, 240
 # hit_attrs_bwd 90, the carry and epilogue 45, 13 accumulations.
 OPS_BWD_RAY_BOUNCE = 2 * 240 + 330 + 90 + 45 + 13
 
+# FP32 operations per slab test and per leaf row of the BVH walk, by
+# primitive type, as csrc/bvh.cuh counts them
+_BVH_CUH = Path(__file__).resolve().parent / "cpppathtracer_tpu_torch" / "csrc" / "bvh.cuh"
+
 W = H = 1024
 SPP, DEPTH = 64, 8
+BVH_N, BVH_SPP = 16384, 16
+SUB = 1 << 16  # lanes of the kernel-vs-plain checks of the BVH phase
+# World units from a silhouette edge within which float32 may decide a hit either way 840
+# units from the origin: the dense search's c = |o|^2 - 2 o.c + |c|^2 - r^2 rounds terms of
+# ~7e5 (ulp 0.06), so its discriminant is good to ~0.2, i.e. to 0.2 / 2r ~ 0.1 at r = 1
+EDGE_TOL = 0.25
+PROG_W, PROG_H = 1280, 720
 FORWARD_KERNELS = ("mega_trace", "stream_compact", "stream_expand")
 CAMERA = dict(origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0))
 
@@ -190,6 +208,329 @@ def plain_path():
         yield
     finally:
         mega.mega_trace, mega.stream_compact, mega.stream_expand = saved
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Set environment switches (POCA_BVH, POCA_MEGA) for a block."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def record_bvh_rays(calls):
+    """Keep a copy of the rays of every BVH walk the wavefront path
+    launches (its launches still count)."""
+    from cpppathtracer_tpu_torch.ops import fast
+
+    real = fast.bvh_winner_index
+
+    def recording(o, d, tmin, tmax, *tables, leaf_size):
+        calls.append((tuple(c.clone() for c in o), tuple(c.clone() for c in d), tmin.clone(),
+                      tmax.clone()))
+        return real(o, d, tmin, tmax, *tables, leaf_size=leaf_size)
+
+    fast.bvh_winner_index = recording
+    try:
+        yield
+    finally:
+        fast.bvh_winner_index = real
+
+
+def bvh_ops():
+    """csrc/bvh.cuh's FP32 operation counts: (per slab test, per leaf row
+    of a sphere, platform, cylinder, padding)."""
+    text = _BVH_CUH.read_text()
+    get = lambda name: int(re.search(rf"#define POCA_BVH_OPS_{name} (\d+)", text).group(1))
+    return get("SLAB"), tuple(get(t) for t in ("SPHERE", "PLATFORM", "CYLINDER", "PAD"))
+
+
+def take(ray, lanes):
+    """The rays (o, d, tmin, tmax) at `lanes`, contiguous."""
+    o, d, tmin, tmax = ray
+    pick = lambda t: t[lanes].contiguous()
+    return tuple(map(pick, o)), tuple(map(pick, d)), pick(tmin), pick(tmax)
+
+
+def hit_float64(gs, ray, idx):
+    """Each ray against its grouped object `idx` in float64 on the CPU:
+    (t by the epilogue's hit test, object_hit_attrs_p; the distance from
+    the ray to the nearest edge of the object's silhouette).  The edges
+    are a sphere's outline, a cylinder's side lines (the ray's distance to
+    the axis in the xz projection against r), its cap rims (the crossing
+    of each cap plane against r) and the cap heights where the ray meets
+    the side; a platform has none (inf)."""
+    from cpppathtracer_tpu_torch.ops.planar import object_hit_attrs_p
+    from cpppathtracer_tpu_torch.types import INF, PrimitiveType
+
+    f64 = lambda t: t.detach().to("cpu", torch.float64)
+    rec = f64(gs.table_s)[idx.long().cpu()].T
+    o, d, tmin, tmax = ray
+    (ox, oy, oz), (dx, dy, dz) = tuple(map(f64, o)), tuple(map(f64, d))
+    cx, cy, cz, r, ptype = rec[0], rec[1], rec[2], rec[3], rec[6]
+    t, _ = object_hit_attrs_p(ptype.to(torch.int32), (cx, cy, cz), r, rec[4], rec[5], (ox, oy, oz),
+                              (dx, dy, dz), f64(tmin), f64(tmax))
+    t = torch.where(t < INF, t, torch.full_like(t, INF))
+    inf = torch.full_like(t, INF)
+    qx, qy, qz = ox - cx, oy - cy, oz - cz
+
+    def line_dist(qs, ds):  # distance from the centre to the ray's line; the closest t
+        a = sum(v * v for v in ds)
+        t_c = -sum(q * v for q, v in zip(qs, ds)) / torch.where(a == 0, torch.ones_like(a), a)
+        return sum((q + t_c * v) ** 2 for q, v in zip(qs, ds)).sqrt(), t_c, a
+
+    perp, _, _ = line_dist((qx, qy, qz), (dx, dy, dz))
+    s_sph = (perp - r).abs()
+    perp2, t_c, a2 = line_dist((qx, qz), (dx, dz))
+    s_cyl = torch.where(a2 == 0, inf, (perp2 - r).abs())
+    half = (r * r - perp2 * perp2).clamp(min=0).sqrt() / a2.sqrt()
+    for y_cap in (cy + rec[5] / 2, cy - rec[5] / 2):
+        tc = (y_cap - oy) / torch.where(dy == 0, torch.ones_like(dy), dy)
+        rho = ((ox + tc * dx - cx) ** 2 + (oz + tc * dz - cz) ** 2).sqrt()
+        s_cyl = torch.minimum(s_cyl, torch.where(dy == 0, inf, (rho - r).abs()))
+        for tr in (t_c - half, t_c + half):
+            s_h = torch.where(perp2 <= r, (oy + tr * dy - y_cap).abs(), inf)
+            s_cyl = torch.minimum(s_cyl, s_h)
+    edge = torch.where(ptype == PrimitiveType.SPHERE, s_sph,
+                       torch.where(ptype == PrimitiveType.CYLINDER, s_cyl, inf))
+    return t, torch.nan_to_num(edge, nan=INF)
+
+
+def bvh_phase(dev, sky):
+    """The BVH path: the walk and the dense launch against their plain
+    versions, BVH vs dense renders, the big_scene(16384) render and
+    progressive loop, a profile, and the two kernels' rows."""
+    from cpppathtracer_tpu_torch.integrator import render_radiance
+    from cpppathtracer_tpu_torch.models.presets import big_camera, big_scene
+    from cpppathtracer_tpu_torch.ops.cuda import build as kb
+    from cpppathtracer_tpu_torch.ops.cuda.bvh_kernel import bvh_winner_index, bvh_winner_index_plain
+    from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import (
+        build_geom_rows, winner_index, winner_index_plain,
+    )
+    from cpppathtracer_tpu_torch.ops.fast import group_scene
+    from cpppathtracer_tpu_torch.ops.planar import gather_epilogue_p
+    from cpppathtracer_tpu_torch.renderer import ProgressiveRenderer, RenderConfig
+    from cpppathtracer_tpu_torch.types import INF
+
+    r = W * H
+    sub = torch.arange(0, r, r // SUB, device=dev)  # SUB lanes spread over the image
+
+    # 1. build
+    t0 = time.perf_counter()
+    scene = big_scene(BVH_N, device=dev)
+    build_s = time.perf_counter() - t0
+    m, k = scene.bvh_dims
+    log(f"[bvh] big_scene({BVH_N}): {scene.num_objects} objects {scene.type_counts}, "
+        f"M = {m} nodes, K = {k}, leaf rows {tuple(scene.bvh_objs.shape)}, built in {build_s:.2f} s")
+    camera = big_camera(BVH_N, W, H, device=dev)
+    gs = group_scene(scene)
+    tables = (gs.bvh_meta, gs.bvh_aabb, gs.bvh_objs)
+
+    # one sample of the slice render with every bounce's rays kept (also the warm-up)
+    calls = []
+    with torch.no_grad(), record_bvh_rays(calls):
+        render_radiance(scene, camera, sky, spp=1, max_depth=DEPTH, seed=0)
+    torch.cuda.synchronize()
+
+    # 2. the walk against its plain version on 2^16 primaries and 2^16 secondaries
+    alive1 = (calls[1][0][0] != calls[0][0][0]) | (calls[1][0][1] != calls[0][0][1])
+    live = alive1.nonzero().squeeze(1)
+    sub2 = live[torch.linspace(0, live.numel() - 1, SUB, device=dev).long()]
+    for what, ray in (("primaries", take(calls[0], sub)), ("bounce-1 rays", take(calls[1], sub2))):
+        got = bvh_winner_index(*ray, *tables, leaf_size=k)
+        ref = bvh_winner_index_plain(*ray, *tables, leaf_size=k)
+        log(f"[check] bvh_winner_index vs plain, {SUB} {what} of big_scene({BVH_N}): "
+            f"{float((got == ref).float().mean()):.6f} of lanes equal")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"bvh_winner_index differs from its plain version ({what})")
+
+    # 3. the dense launch against its plain version on 2^16 primaries of big_scene(2048)
+    gs2 = group_scene(big_scene(2048, bvh=False, device=dev))
+    cam2 = big_camera(2048, W, H, device=dev)
+    pix = torch.arange(r, dtype=torch.int32, device=dev)
+    samp0 = torch.zeros(r, dtype=torch.int32, device=dev)
+    zero, inf = torch.zeros(r, device=dev), torch.full((r,), INF, device=dev)
+    ray2 = take((*cam2.ray_gen_planar(pix, samp0, 0), zero, inf), sub)
+    geom2 = build_geom_rows(gs2)
+    got = winner_index(gs2.counts, *ray2, geom2)
+    if not torch.equal(got, winner_index_plain(gs2.counts, *ray2, geom2)):
+        raise AssertionError("winner_index differs from its plain version")
+    log(f"[check] winner_index vs plain, {SUB} primaries of big_scene(2048): bitwise equal, "
+        f"{float((got > 0).float().mean()):.4f} of lanes on an object other than 0")
+
+    # 4. BVH vs dense on big_scene(4096), 1024^2 x 1 spp, depth 1 (the dense render is
+    # winner_index's own path).  The camera stands 840 units from the origin, where the
+    # dense search's expanded quadratic (|o|^2 - 2 o.c + |c|^2 - r^2) loses the small
+    # spheres' discriminant to cancellation, and the BVH's direct form (|o - c|^2 - r^2)
+    # to a lesser degree: the renders must be bitwise equal wherever the two winners
+    # agree, the winners must agree on >= 99.8% of the pixels, and wherever they differ
+    # the walk's winner must be the closer under the walk's own (direct) arithmetic
+    # (gather_epilogue_p), and in float64 the ray must pass within EDGE_TOL of one of the
+    # two winners' silhouette edges, or their t agree within 1e-4 (a tie).
+    scene4 = big_scene(4096, device=dev)
+    cam4 = big_camera(4096, W, H, device=dev)
+    gs4 = group_scene(scene4)
+    geom4 = build_geom_rows(gs4)
+    with torch.no_grad():
+        got = render_radiance(scene4, cam4, sky, spp=1, max_depth=1, seed=0)
+        with env(POCA_BVH="0", POCA_MEGA="0"):
+            kb.reset_launches()
+            ref = render_radiance(scene4, cam4, sky, spp=1, max_depth=1, seed=0)
+            torch.cuda.synchronize()
+            dense_launches = dict(kb.LAUNCHES)
+    if dense_launches["winner_index"] != 1 or dense_launches["bvh_winner_index"]:
+        raise AssertionError(f"the dense wavefront render launched {dense_launches}")
+    ray4 = take((*cam4.ray_gen_planar(pix, samp0, 0), zero, inf), slice(None))
+    w_bvh = bvh_winner_index(*ray4, gs4.bvh_meta, gs4.bvh_aabb, gs4.bvh_objs,
+                             leaf_size=gs4.bvh_dims[1])
+    w_dense = winner_index(gs4.counts, *ray4, geom4)
+    agree = w_bvh == w_dense
+    same = [torch.equal(a[agree], b[agree]) for a, b in zip(got, ref)]
+    t_of = lambda idx: gather_epilogue_p(gs4.table_s, gs4.table_r, *ray4, idx)[0]["t"]
+    t_bvh, t_dense = t_of(w_bvh)[~agree], t_of(w_dense)[~agree]
+    dense_missed = int((t_dense >= INF).sum())
+    diff = (~agree).nonzero().squeeze(1)
+    (t64_bvh, e_bvh), (t64_dense, e_dense) = (hit_float64(gs4, take(ray4, diff), w[diff])
+                                              for w in (w_bvh, w_dense))
+    split64 = [int(v.sum()) for v in ((t64_dense >= INF) & (t64_bvh < INF),
+                                      (t64_dense > t64_bvh) & (t64_dense < INF),
+                                      t64_dense == t64_bvh, t64_dense < t64_bvh)]
+    near_tie = (t64_dense == t64_bvh) | ((t64_dense - t64_bvh).abs() <= 1e-4 * t64_bvh)
+    edge = torch.minimum(e_bvh, e_dense)
+    at_edge = ~near_tie & (edge <= EDGE_TOL)
+    lost = ~near_tie & ~at_edge
+    qs = torch.tensor([0.5, 0.9, 1.0], dtype=torch.float64)
+    q = [round(v, 5) for v in edge[at_edge].quantile(qs).tolist()] if at_edge.any() else []
+    # the chance baseline: SUB agreeing lanes that hit a sphere or cylinder
+    base = agree.nonzero().squeeze(1)[::max(1, int(agree.sum()) // SUB)]
+    e_base = hit_float64(gs4, take(ray4, base), w_bvh[base])[1]
+    e_base = e_base[e_base < INF]
+    share = float(agree.float().mean())
+    log(f"[check] big_scene(4096) 1024^2 x d1, BVH vs POCA_BVH=0 POCA_MEGA=0: winners agree on "
+        f"{share:.6f} of pixels, where radiance, normal, t are bitwise "
+        f"equal: {same}; of the {diff.numel()} others the dense winner is missed by the "
+        f"float32 hit test on {dense_missed}, farther on {int((t_dense > t_bvh).sum()) - dense_missed}, "
+        f"tied on {int((t_dense == t_bvh).sum())}; in float64 missed on {split64[0]}, farther on "
+        f"{split64[1]}, tied on {split64[2]}, closer on {split64[3]}; dense launches {dense_launches}")
+    lost_types = [gs4.table_s[w[diff][lost].long(), 6].tolist()[:8] for w in (w_bvh, w_dense)]
+    log(f"[check] float64 on the {diff.numel()} lanes: t within 1e-4 on {int(near_tie.sum())}; "
+        f"within {EDGE_TOL} of a winner's silhouette edge on {int(at_edge.sum())} (median, 90%, "
+        f"max {q}; the dense winner the nearer in float64 on "
+        f"{int((at_edge & (t64_dense < t64_bvh)).sum())}); neither on {int(lost.sum())} (edges "
+        f"{edge[lost].tolist()[:8]}, types {lost_types}); by chance: {e_base.numel()} agreeing "
+        f"sphere or cylinder hits, {float((e_base <= EDGE_TOL).double().mean()):.4f} within "
+        f"{EDGE_TOL}, median {float(e_base.median()):.4f}")
+    if not (all(same) and bool((t_bvh <= t_dense).all()) and share >= 0.998):
+        raise AssertionError("the BVH render differs from the dense render at depth 1")
+    if lost.any():
+        raise AssertionError("BVH and dense winners differ on a lane that float32 rounding does not explain")
+
+    # 5. the slice: 1024^2 x 16 spp x d8 on big_scene(16384)
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        rad, n0, t_first = render_radiance(scene, camera, sky, spp=BVH_SPP, max_depth=DEPTH, seed=0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kb.LAUNCHES)
+    want = dict(kb.LAUNCHES, bvh_winner_index=BVH_SPP * DEPTH, mega_trace=0, mega_bwd=0,
+                winner_index=0, stream_compact=0, stream_expand=0)
+    if launches != want:
+        raise AssertionError(f"the BVH render launched {launches}, expected {want}")
+    if not (torch.isfinite(rad).all() and rad.shape == (r, 3) and torch.isfinite(n0).all()):
+        raise AssertionError("the BVH render's output is not finite or has the wrong shape")
+    rays = r * BVH_SPP * DEPTH
+    log(f"[bvh render] big_scene({BVH_N}) 1024^2 x {BVH_SPP} spp x d{DEPTH}: {dt * 1e3:.1f} ms, "
+        f"{dt * 1e3 / BVH_SPP:.3f} ms/sample, {rays / dt / 1e6:.1f} Mrays/s, launches {launches}, "
+        f"mean radiance {float(rad.mean()):.5f}, first hits {float((t_first < INF).float().mean()):.4f}")
+
+    # 6. progressive loop on the same scene, 1280x720, 1 spp/frame, denoised
+    pcam = big_camera(BVH_N, PROG_W, PROG_H, device=dev)
+    prog = ProgressiveRenderer(scene, pcam, sky, RenderConfig(width=PROG_W, height=PROG_H,
+                                                              max_depth=DEPTH))
+    prog.step()
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        prog.step()
+    frame = prog.frame()
+    dt_p = time.perf_counter() - t0
+    if not (np.isfinite(frame).all() and frame.shape == (PROG_H, PROG_W, 3)):
+        raise AssertionError("BVH progressive frame is not finite")
+    if kb.LAUNCHES["bvh_winner_index"] != 16 * DEPTH or kb.LAUNCHES["mega_trace"]:
+        raise AssertionError(f"BVH progressive loop launched {dict(kb.LAUNCHES)}")
+    log(f"[bvh progressive] 16 frames {PROG_W}x{PROG_H} x1 spp x d{DEPTH} + denoise: "
+        f"{dt_p * 1e3 / 16:.2f} ms/frame, launches {dict(kb.LAUNCHES)}")
+
+    # 7. where a sample's time goes
+    with torch.no_grad():
+        profile_device(lambda: render_radiance(scene, camera, sky, spp=2, max_depth=DEPTH, seed=0),
+                       f"big_scene({BVH_N}), 2 samples")
+
+    # 8. kernel rows.  The walk per sample: the 8 per-bounce launches of sample 0 on its
+    # recorded rays; the dense launch on the 1024^2 primaries of big_scene(4096).
+    ops_slab, ops_row = bvh_ops()
+    walk = lambda fn, **kw: [fn(*c, *tables, leaf_size=k, **kw) for c in calls]
+    ms_bvh = time_ms(lambda: walk(bvh_winner_index), iters=5, warmup=1)
+    t0 = time.perf_counter()
+    counted = walk(bvh_winner_index_plain, with_counts=True)
+    torch.cuda.synchronize()
+    plain_bvh = (time.perf_counter() - t0) * 1e3
+    # the kernel against its plain version on every bounce of the sample, 2^20 lanes each
+    err_bvh = max(float((a - c[0]).abs().max()) for a, c in zip(walk(bvh_winner_index), counted))
+    log(f"[check] bvh_winner_index vs plain, the {len(calls)} bounces of one sample of "
+        f"big_scene({BVH_N}) at 1024^2: max |diff| {err_bvh}")
+    if err_bvh:
+        raise AssertionError("bvh_winner_index differs from its plain version on the sample's bounces")
+    n_slab = sum(int(c[1].sum()) for c in counted)
+    n_rows = [sum(int(c[2][t].sum()) for c in counted) for t in range(4)]
+    ops = ops_slab * n_slab + sum(o * n for o, n in zip(ops_row, n_rows))
+    table_bytes = sum(t.numel() * t.element_size() for t in tables)
+    bytes_bvh = DEPTH * (r * 4 * (8 + 1) + table_bytes)
+    ops_s, bytes_s = ops / FP32_OPS_PER_S, bytes_bvh / HBM_BYTES_PER_S
+    log(f"[kernels] bvh_winner_index per sample (8 launches): {ms_bvh:.3f} ms, bound "
+        f"{max(ops_s, bytes_s) * 1e3:.4f} ms ({n_slab} slab tests x {ops_slab} + leaf rows "
+        f"S/P/C/pad {n_rows} x {ops_row} = {ops:.4g} ops, {ops_s * 1e3:.4f} ms; "
+        f"{bytes_bvh / 1e6:.1f} MB {bytes_s * 1e3:.4f} ms); plain {plain_bvh:.1f} ms; "
+        f"{n_slab / (r * DEPTH):.1f} slab tests and {sum(n_rows) / (r * DEPTH):.1f} leaf rows per ray")
+
+    ms_w = time_ms(lambda: winner_index(gs4.counts, *ray4, geom4), iters=5, warmup=1)
+    t0 = time.perf_counter()
+    parts = [winner_index_plain(gs4.counts, *take(ray4, part), geom4)  # in SUB-lane parts
+             for part in torch.arange(r, device=dev).split(SUB)]
+    torch.cuda.synchronize()
+    plain_w = (time.perf_counter() - t0) * 1e3
+    err_w = float((torch.cat(parts) - w_dense).abs().max())
+    log(f"[check] winner_index vs plain, 1024^2 primaries of big_scene(4096): max |diff| {err_w}")
+    if err_w:
+        raise AssertionError("winner_index differs from its plain version on big_scene(4096)")
+    n_s, n_p, n_c = gs4.counts
+    ops_w = r * (OPS_SPHERE * n_s + OPS_PLATFORM * n_p + OPS_CYLINDER * n_c)
+    bytes_w = r * 4 * (8 + 1) + geom4.numel() * 4
+    ops_ws, bytes_ws = ops_w / FP32_OPS_PER_S, bytes_w / HBM_BYTES_PER_S
+    log(f"[kernels] winner_index, 1024^2 primaries of big_scene(4096): {ms_w:.3f} ms, bound "
+        f"{max(ops_ws, bytes_ws) * 1e3:.4f} ms ({ops_w:.4g} ops {ops_ws * 1e3:.4f} ms; "
+        f"{bytes_w / 1e6:.1f} MB {bytes_ws * 1e3:.4f} ms); plain {plain_w:.1f} ms")
+    by = lambda o, b: "operations" if o > b else "bytes"
+    return [
+        dict(name="bvh_winner_index", route="cuda", source="cpppathtracer_tpu_torch/csrc/bvh.cu",
+             replaces="cpppathtracer_tpu/ops/pallas/bvh_kernel.py:234",
+             launches=launches["bvh_winner_index"], max_abs_err=err_bvh, ms=ms_bvh, plain_ms=plain_bvh,
+             bound_ms=max(ops_s, bytes_s) * 1e3, bound_by=by(ops_s, bytes_s), library_ms=None),
+        dict(name="winner_index", route="cuda", source="cpppathtracer_tpu_torch/csrc/winner.cu",
+             replaces="cpppathtracer_tpu/ops/pallas/intersect_kernel.py:419",
+             launches=dense_launches["winner_index"], max_abs_err=err_w, ms=ms_w, plain_ms=plain_w,
+             bound_ms=max(ops_ws, bytes_ws) * 1e3, bound_by=by(ops_ws, bytes_ws), library_ms=None),
+    ]
 
 
 def main():
@@ -380,7 +721,8 @@ def main():
     dt_t = time.perf_counter() - t0
     train_launches = dict(kb.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    want = dict(mega_trace=2 * SPP, stream_compact=SPP, stream_expand=SPP, mega_bwd=SPP)
+    want = dict(mega_trace=2 * SPP, stream_compact=SPP, stream_expand=SPP, mega_bwd=SPP,
+                winner_index=0, bvh_winner_index=0)
     if train_launches != want:
         raise AssertionError(f"training step launches {train_launches}, expected {want}")
     for name, g in (("kd", g_kd), ("emission", g_em)):
@@ -489,6 +831,8 @@ def main():
         f"({OPS_BWD_RAY_BOUNCE} ops per ray-bounce that hit, {live_bwd} of them, "
         f"{ops_s * 1e3:.4f} ms; its {bytes_bwd / 1e6:.1f} MB {bytes_s * 1e3:.4f} ms); "
         f"plain {plain_bwd_ms:.1f} ms")
+    # ---- phase 7: BVH scenes through the per-bounce wavefront path
+    kernels += bvh_phase(dev, sky)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

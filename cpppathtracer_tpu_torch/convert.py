@@ -26,17 +26,24 @@ def _tensor(a, dtype, device):
     return torch.from_numpy(np.array(a, dtype=dtype, copy=True)).to(device)
 
 
-def scene_from_numpy(fields: dict, type_perm, type_counts, device=None) -> Scene:
+BVH_FIELDS = {"bvh_meta": np.int32, "bvh_aabb": np.float32, "bvh_objs": np.float32}
+
+
+def scene_from_numpy(fields: dict, type_perm, type_counts, device=None, bvh_dims=()) -> Scene:
     """A Scene from the JAX Scene's arrays (`fields`, keyed by field name)
-    and its static partition metadata."""
+    and its static partition metadata.  With `bvh_dims` (the JAX Scene's
+    (M, K)), `fields` also holds its BVH tables bvh_meta, bvh_aabb and
+    bvh_objs, which are carried across as they are."""
     dev = resolve_device(device)
-    missing = set(SCENE_FIELDS) - set(fields)
+    names = dict(SCENE_FIELDS, **(BVH_FIELDS if bvh_dims else {}))
+    missing = set(names) - set(fields)
     if missing:
         raise ValueError(f"missing scene fields: {sorted(missing)}")
     return Scene(
-        **{k: _tensor(fields[k], dt, dev) for k, dt in SCENE_FIELDS.items()},
+        **{k: _tensor(fields[k], dt, dev) for k, dt in names.items()},
         type_perm=tuple(int(i) for i in type_perm),
         type_counts=tuple(int(c) for c in type_counts),
+        bvh_dims=tuple(int(v) for v in bvh_dims),
     )
 
 

@@ -87,7 +87,7 @@ mega_trace_kernel(MegaParams p) {
   for (int b = 0; b < p.depth; ++b) {
     const float tmin = (p.start_bounce + b == 0) ? 0.0f : POCA_TMIN_BOUNCE;
     const float tmax = POCA_INF;
-    const int w = poca_winner_index(geom, p.n_s, p.n_p, p.n_c, o.x, o.y, o.z,
+    const int w = poca_winner_search(geom, p.n_s, p.n_p, p.n_c, o.x, o.y, o.z,
                                     d.x, d.y, d.z, tmin, tmax);
     float u1, u2, u3;
     uniforms3(pix, samp, (uint32_t)(1 + p.start_bounce + b), p.seed, u1, u2, u3);

@@ -1,5 +1,6 @@
 // Closest-hit winner search over the type-grouped scene, one ray per
-// thread.
+// thread: inlined by the megakernel (mega_trace.cu) and launched alone by
+// winner.cu for the per-bounce wavefront path.
 //
 // Replaces the winner search of cpppathtracer_tpu/ops/pallas/
 // intersect_kernel.py (_winner_kernel, and _mxu_best_index, its MXU form,
@@ -28,7 +29,7 @@ __device__ __forceinline__ int poca_ceil8(int n) { return (n + 7) / 8 * 8; }
 // cx^2+cz^2-r^2), groups at 8-row aligned offsets [S | P | C]
 // (ops/cuda/intersect_kernel.py::build_geom_rows).  Returns the winner's
 // dense grouped index (0 when nothing is hit).
-__device__ __forceinline__ int poca_winner_index(
+__device__ __forceinline__ int poca_winner_search(
     const float* __restrict__ geom, int n_s, int n_p, int n_c,
     float ox, float oy, float oz, float dx, float dy, float dz,
     float tmin, float tmax) {

@@ -4,6 +4,10 @@ of ``cpppathtracer_tpu/models/scene.py``).
 Material fields follow `include/material.h:21-29`: kd f32[N,3] (albedo,
 also scales emission), emission f32[N], smoothness f32[N] (Phong exponent
 1000**smoothness), reflectivity f32[N], ior f32[N], tex_id i32[N].
+
+Large scenes carry skip-pointer BVH tables over the grouped object order
+(`with_bvh`, built on the host by ``ops/bvh.py``), which the per-bounce
+wavefront path walks with ``csrc/bvh.cu``.
 """
 
 from __future__ import annotations
@@ -13,10 +17,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from cpppathtracer_tpu_torch.ops.bvh import refit_skip_tables, skip_bvh_tables
 from cpppathtracer_tpu_torch.types import MaterialType, PrimitiveType, resolve_device
 
-# Scenes with at least this many objects take the BVH in the JAX package
-# (`models/scene.py:42`); the port has no BVH yet.
+# Scenes with at least this many objects get BVH tables when built, as in
+# the JAX package (`models/scene.py:42`), and take the wavefront path.
 AUTO_BVH_THRESHOLD = 2048
 
 
@@ -41,6 +46,12 @@ class Scene:
     tex_id: torch.Tensor  # i32[N]
     type_perm: tuple = ()
     type_counts: tuple = ()
+    # skip-pointer BVH over the grouped order (with_bvh), None when absent;
+    # bvh_dims = (M nodes, K leaf size)
+    bvh_meta: torch.Tensor | None = None  # i32[M,2] (escape, leaf_id)
+    bvh_aabb: torch.Tensor | None = None  # f32[M,8] (min.xyz, max.xyz, pad)
+    bvh_objs: torch.Tensor | None = None  # f32[L*K,8] leaf object rows
+    bvh_dims: tuple = ()
 
     @property
     def num_objects(self) -> int:
@@ -49,6 +60,69 @@ class Scene:
     @property
     def device(self) -> torch.device:
         return self.center.device
+
+    def _grouped_geometry(self):
+        """The geometry fields in grouped order, as numpy arrays."""
+        perm = np.asarray(self.type_perm, np.int64)
+        g = lambda a: a.detach().cpu().numpy()[perm]
+        return g(self.center), g(self.radius), g(self.y_pos), g(self.height), g(self.prim_type)
+
+    def with_bvh(self, leaf_size: int | None = None) -> "Scene":
+        """Attach skip-pointer BVH tables, built on the host (rebuild or
+        refit after geometry edits).  leaf_size None = the JAX package's
+        rule, K = max(32, ceil8(ceil(N / 256))), which keeps M near 511
+        nodes at any scene size."""
+        if not self.type_perm:
+            raise ValueError("with_bvh needs type-partition metadata")
+        if leaf_size is None:
+            k = -(-self.num_objects // 256)
+            leaf_size = max(32, -(-k // 8) * 8)
+        tables = skip_bvh_tables(*self._grouped_geometry(), leaf_size=leaf_size)
+        dev = self.device
+        return dataclasses.replace(
+            self,
+            bvh_meta=torch.from_numpy(tables["node_meta"]).to(dev),
+            bvh_aabb=torch.from_numpy(tables["node_aabb"]).to(dev),
+            bvh_objs=torch.from_numpy(tables["leaf_objs"]).to(dev),
+            bvh_dims=(int(tables["node_meta"].shape[0]), int(tables["leaf_size"])),
+        )
+
+    def refit_bvh(self) -> "Scene":
+        """Refit attached tables to moved geometry without a rebuild
+        (`SceneBVH::UpdateObject`, `cuSrc/bvh.cu:122-157`): the topology
+        is reused and winners equal a rebuild's."""
+        if self.bvh_meta is None:
+            return self
+        aabb, objs = refit_skip_tables(
+            self.bvh_meta.cpu().numpy(), self.bvh_aabb.cpu().numpy(),
+            self.bvh_objs.cpu().numpy(), self.bvh_dims[1], *self._grouped_geometry(),
+        )
+        dev = self.device
+        return dataclasses.replace(
+            self, bvh_aabb=torch.from_numpy(aabb).to(dev), bvh_objs=torch.from_numpy(objs).to(dev)
+        )
+
+    def with_geometry(self, **fields) -> "Scene":
+        """Edit geometry fields (center, radius, y_pos, height) and refit
+        attached BVH tables to them.  A bare `dataclasses.replace` leaves
+        the walk reading stale leaf rows (see `bvh_is_stale`)."""
+        return dataclasses.replace(self, **fields).refit_bvh()
+
+    def bvh_is_stale(self) -> bool:
+        """True when attached leaf rows disagree with the geometry fields
+        (a host-side check; ProgressiveRenderer runs it once)."""
+        if self.bvh_meta is None:
+            return False
+        objs = self.bvh_objs.cpu().numpy()
+        valid = objs[:, 6] >= 0
+        oi = objs[:, 7].astype(np.int64)[valid]
+        center, radius, y_pos, height, _ = self._grouped_geometry()
+        return not (
+            np.array_equal(objs[valid, 0:3], center[oi])
+            and np.array_equal(objs[valid, 3], radius[oi])
+            and np.array_equal(objs[valid, 4], y_pos[oi])
+            and np.array_equal(objs[valid, 5], height[oi])
+        )
 
     def material_params(self):
         """The material parameter sub-dict (albedo / roughness / IOR /
@@ -141,17 +215,16 @@ class SceneBuilder:
 
     def build(self, device=None, pad_to: int | None = None, bvh: bool | None = None) -> Scene:
         """Freeze to a `Scene` on `device` (the CUDA card by default).
-        `pad_to` rounds N up with inactive padding objects.  Scenes that
-        would take the BVH (`bvh=True`, or None with at least
-        AUTO_BVH_THRESHOLD objects) raise: the port has no BVH yet."""
+        `pad_to` rounds N up with inactive padding objects.  `bvh` attaches
+        skip-pointer BVH tables (None: at AUTO_BVH_THRESHOLD objects or
+        more).  The tables freeze the build's geometry: edit it through
+        `Scene.with_geometry`, which refits them."""
         n = len(self._objs)
         m = n if pad_to is None else max(n, pad_to)
         if m == 0:
             raise ValueError("empty scene")
         if bvh is None:
             bvh = n >= AUTO_BVH_THRESHOLD
-        if bvh:
-            raise NotImplementedError("BVH scenes are not ported yet")
         dev = resolve_device(device)
 
         def arr(field, dtype=np.float32, dim=None):
@@ -167,7 +240,7 @@ class SceneBuilder:
             [np.where(prim_type == t)[0] for t in (0, 1, 2)]
             + [np.where(prim_type < 0)[0]]
         )
-        return Scene(
+        scene = Scene(
             type_perm=tuple(int(i) for i in order),
             type_counts=tuple(int((prim_type == t).sum()) for t in (0, 1, 2)),
             prim_type=torch.from_numpy(prim_type).to(dev),
@@ -183,6 +256,7 @@ class SceneBuilder:
             ior=arr("ior"),
             tex_id=arr("tex_id", np.int32),
         )
+        return scene.with_bvh() if bvh else scene
 
 
 def demo_scene(seed: int = 0) -> SceneBuilder:

@@ -38,7 +38,8 @@ NVCC_FLAGS = [
 ]
 
 # launches per wrapper since the last reset_launches()
-LAUNCHES = {"mega_trace": 0, "stream_compact": 0, "stream_expand": 0, "mega_bwd": 0}
+LAUNCHES = {"mega_trace": 0, "stream_compact": 0, "stream_expand": 0, "mega_bwd": 0,
+            "winner_index": 0, "bvh_winner_index": 0}
 
 
 def reset_launches():
@@ -127,6 +128,10 @@ _SIGNATURES = {
     # o3 d3 pix samp ts trt hits | 13 cotangent planes | out_tab out_od carry |
     # R n_pad depth seed smem_acc | stream
     "poca_mega_bwd": [_P] * 11 + [_P] * 13 + [_P] * 3 + [_I] * 5 + [_P],
+    # o3 d3 tmin tmax geom | out | R n_s n_p n_c n_rep | stream
+    "poca_winner_index": [_P] * 9 + [_P] + [_I] * 5 + [_P],
+    # o3 d3 tmin tmax meta aabb objs | out | R m k | stream
+    "poca_bvh_winner_index": [_P] * 11 + [_P] + [_I] * 3 + [_P],
 }
 
 

@@ -1,22 +1,68 @@
-"""Closest-hit winner search: the geometry rows its kernel reads, and its
-plain PyTorch version.
+"""Closest-hit winner search: the geometry rows its kernel reads, the
+standalone launch and its plain PyTorch version.
 
-Counterpart of ``cpppathtracer_tpu/ops/pallas/intersect_kernel.py``.  The
-CUDA form is the ``__device__`` function ``poca_winner_index`` in
-``csrc/winner.cuh``, inlined by the megakernel (``csrc/mega_trace.cu``);
-the standalone launch of the JAX package serves its per-bounce wavefront
-path, which is not ported yet.
+Counterpart of ``cpppathtracer_tpu/ops/pallas/intersect_kernel.py``
+(``pallas_winner_index_planar``, ``pallas_winner_index_v``,
+``pallas_winner_index``: one function in three TPU layouts).  The CUDA form
+is the ``__device__`` function ``poca_winner_search`` in ``csrc/winner.cuh``,
+inlined by the megakernel (``csrc/mega_trace.cu``) and launched alone by
+``csrc/winner.cu`` (:func:`winner_index`) for the per-bounce wavefront
+path.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cpppathtracer_tpu_torch.ops.cuda import build as kb
 from cpppathtracer_tpu_torch.types import INF
+
+# The shared memory one block may opt into on sm_90 (227 KB); the launch
+# stages all geometry rows there.
+WINNER_SMEM_MAX = 232448
 
 
 def ceil8(n: int) -> int:
     return -(-n // 8) * 8
+
+
+def winner_index(counts, o, d, tmin, tmax, geom):
+    """Dense grouped winner index i32[R] for planar rays (o, d tuples of
+    f32[R]; tmin, tmax f32[R]) over `geom` (:func:`build_geom_rows`);
+    0 where nothing is hit.
+
+    CUDA tensors launch ``csrc/winner.cu``; CPU tensors take
+    :func:`winner_index_plain`.  A scene whose rows exceed the shared
+    memory of one block raises ValueError."""
+    dev = tmin.device
+    if dev.type == "cpu":
+        return winner_index_plain(counts, o, d, tmin, tmax, geom)
+    if dev.type != "cuda":
+        raise ValueError(f"winner_index runs on cuda or cpu tensors, got {dev}")
+    r = tmin.shape[0]
+    n_s, n_p, n_c = counts
+    f32 = torch.float32
+    for k, t in enumerate([*o, *d, tmin, tmax]):
+        kb.require(t, f"ray plane {k}", f32, (r,), dev)
+    n_rep = geom.shape[0]
+    kb.require(geom, "geom", f32, (n_rep, 8), dev)
+    if n_rep < ceil8(n_s) + ceil8(n_p) + ceil8(n_c):
+        raise ValueError("geom has fewer rows than the counts")
+    if 32 * n_rep > WINNER_SMEM_MAX:
+        raise ValueError(
+            f"winner_index stages {n_rep} geometry rows ({32 * n_rep} bytes) in shared "
+            f"memory; one block holds at most {WINNER_SMEM_MAX} bytes "
+            f"({WINNER_SMEM_MAX // 32} rows): give the scene BVH tables"
+        )
+    out = torch.empty((r,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = kb.library().poca_winner_index(
+            *[t.data_ptr() for t in (*o, *d, tmin, tmax)], geom.data_ptr(), out.data_ptr(),
+            r, n_s, n_p, n_c, n_rep, kb.stream_handle(tmin),
+        )
+    kb.check(err, "winner_index")
+    kb.LAUNCHES["winner_index"] += 1
+    return out
 
 
 def build_geom_rows(gs):

@@ -1,5 +1,6 @@
-"""The type-grouped scene tables that every kernel reads (counterpart of
-``cpppathtracer_tpu/ops/fast.py:48-126``).
+"""The type-grouped scene tables that every kernel reads, and the
+per-bounce closest hit of the wavefront path (counterpart of
+``cpppathtracer_tpu/ops/fast.py:48-126, 516-621``).
 
 Objects are permuted into [spheres | platforms | cylinders | padding]
 order, so the winner search runs only each group's own analytic test and
@@ -16,8 +17,13 @@ table_r (4 columns): 0:2 kd | 3 emission
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
+
+from cpppathtracer_tpu_torch.ops import planar
+from cpppathtracer_tpu_torch.ops.cuda.bvh_kernel import bvh_winner_index
+from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import build_geom_rows, winner_index
 
 F_S = 13
 F_R = 4
@@ -32,6 +38,11 @@ class GroupedScene:
     table_s: torch.Tensor  # f32[Ng,F_S]
     table_r: torch.Tensor  # f32[Ng,F_R]
     counts: tuple  # (n_sphere, n_platform, n_cylinder)
+    # the scene's skip-pointer BVH tables (grouped indices), None when absent
+    bvh_meta: torch.Tensor | None = None
+    bvh_aabb: torch.Tensor | None = None
+    bvh_objs: torch.Tensor | None = None
+    bvh_dims: tuple = ()
 
 
 def group_scene(scene) -> GroupedScene:
@@ -58,4 +69,31 @@ def group_scene(scene) -> GroupedScene:
     return GroupedScene(
         center=center, radius=radius, y_pos=y_pos, height=height,
         table_s=table_s, table_r=table_r, counts=tuple(scene.type_counts),
+        bvh_meta=scene.bvh_meta, bvh_aabb=scene.bvh_aabb, bvh_objs=scene.bvh_objs,
+        bvh_dims=tuple(scene.bvh_dims),
     )
+
+
+def use_bvh(gs) -> bool:
+    """Whether the closest hit walks the BVH: the scene has tables and the
+    environment does not set POCA_BVH=0 (the JAX package's switch)."""
+    return gs.bvh_meta is not None and os.environ.get("POCA_BVH", "1") != "0"
+
+
+def intersect_and_gather_planar(gs, o, d, tmin, tmax):
+    """Closest hit and its record for planar rays (o, d tuples of f32[R]):
+    the winner index by the BVH walk (``csrc/bvh.cu``) when
+    :func:`use_bvh`, else by the dense search (``csrc/winner.cu``) over
+    :func:`build_geom_rows` of `gs`, then the record fetch and hit
+    attributes of ``planar.gather_epilogue_p``.
+
+    The winner index is piecewise constant and carries no gradient; the
+    epilogue is differentiable.  Returns (hitrec, mats)."""
+    flat = lambda t: t.detach().contiguous()
+    ray = ([flat(c) for c in o], [flat(c) for c in d], flat(tmin), flat(tmax))
+    if use_bvh(gs):
+        gidx = bvh_winner_index(*ray, gs.bvh_meta, gs.bvh_aabb, gs.bvh_objs,
+                                leaf_size=gs.bvh_dims[1])
+    else:
+        gidx = winner_index(gs.counts, *ray, build_geom_rows(gs).detach())
+    return planar.gather_epilogue_p(gs.table_s, gs.table_r, o, d, tmin, tmax, gidx)

@@ -10,6 +10,7 @@ with sample_idx starting at 1 and reset when the camera moves
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import numpy as np
 import torch
@@ -102,6 +103,15 @@ class ProgressiveRenderer:
     device's stream; `frame()` waits for it."""
 
     def __init__(self, scene, camera, sky_tex, config: RenderConfig | None = None):
+        # Geometry edited by a bare dataclasses.replace leaves attached BVH
+        # tables at the old positions, and the walk then returns wrong
+        # winners: refit them here, once.
+        if scene.bvh_is_stale():
+            logging.getLogger(__name__).warning(
+                "scene BVH tables are stale (geometry edited after build); refitting: "
+                "use Scene.with_geometry to avoid this"
+            )
+            scene = scene.refit_bvh()
         self.scene = scene
         self.camera = camera
         self.sky_tex = torch.as_tensor(sky_tex, dtype=torch.float32, device=scene.device)

@@ -232,3 +232,73 @@ def test_mega_sample_grads_kernel_vs_plain_on_card(dev, monkeypatch):
         a, b = a.flatten().double(), b.flatten().double()
         assert float(a @ b / (a.norm() * b.norm())) > 0.9999
         assert abs(float(a.norm() / b.norm()) - 1) < 1e-3
+
+
+# ------------------------------------------------- the wavefront path's winners
+
+
+def _primaries(dev, n, width):
+    """width^2 primaries of big_camera(n), sample 3, as planar rays with
+    tmin 0 and tmax INF."""
+    from cpppathtracer_tpu_torch.models.presets import big_camera
+    from cpppathtracer_tpu_torch.types import INF
+
+    cam = big_camera(n, width, width, device=dev)
+    r = width * width
+    pix = torch.arange(r, dtype=torch.int32, device=dev)
+    o, d = cam.ray_gen_planar(pix, torch.full((r,), 3, dtype=torch.int32, device=dev), 0)
+    flat = lambda v: tuple(c.contiguous() for c in v)
+    return flat(o), flat(d), torch.zeros(r, device=dev), torch.full((r,), INF, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leaf_size", [None, 8], ids=["auto", "leaf8"])
+def test_bvh_winner_index_matches_plain_on_card(dev, leaf_size):
+    """The BVH walk kernel equals its plain version bitwise on 2^16
+    primaries of big_scene(4096), with the automatic leaf size (K = 32) and
+    with K = 8 (about 1,000 nodes)."""
+    from cpppathtracer_tpu_torch.models.presets import big_scene
+    from cpppathtracer_tpu_torch.ops.cuda.bvh_kernel import bvh_winner_index, bvh_winner_index_plain
+
+    scene = big_scene(4096, bvh=False, device=dev).with_bvh(leaf_size)
+    ray = _primaries(dev, 4096, 256)
+    tables = (scene.bvh_meta, scene.bvh_aabb, scene.bvh_objs)
+    k = scene.bvh_dims[1]
+    kb.reset_launches()
+    got = bvh_winner_index(*ray, *tables, leaf_size=k)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["bvh_winner_index"] == 1
+    ref = bvh_winner_index_plain(*ray, *tables, leaf_size=k)
+    assert torch.equal(got, ref)
+    assert float((got > 0).float().mean()) > 0.25
+
+
+@pytest.mark.gpu
+def test_winner_index_matches_plain_on_card(dev):
+    """The standalone dense winner kernel equals its plain version bitwise
+    on 2^16 primaries of big_scene(2048)."""
+    from cpppathtracer_tpu_torch.models.presets import big_scene
+    from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import winner_index, winner_index_plain
+
+    gs = group_scene(big_scene(2048, bvh=False, device=dev))
+    ray = _primaries(dev, 2048, 256)
+    geom = build_geom_rows(gs)
+    kb.reset_launches()
+    got = winner_index(gs.counts, *ray, geom)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["winner_index"] == 1
+    assert torch.equal(got, winner_index_plain(gs.counts, *ray, geom))
+
+
+@pytest.mark.gpu
+def test_winner_index_refuses_rows_beyond_shared_memory(dev):
+    """A scene whose geometry rows exceed one block's shared memory raises
+    a ValueError that names the limit, and launches nothing."""
+    from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import WINNER_SMEM_MAX, winner_index
+
+    n = WINNER_SMEM_MAX // 32 + 8
+    ray = _primaries(dev, 1024, 16)
+    kb.reset_launches()
+    with pytest.raises(ValueError, match=str(WINNER_SMEM_MAX)):
+        winner_index((n, 0, 0), *ray, torch.zeros((n, 8), device=dev))
+    assert kb.LAUNCHES["winner_index"] == 0

@@ -181,8 +181,9 @@ def test_progressive_renderer_on_cpu():
 
 
 def test_port_imports_no_jax():
-    """Importing the port and rendering with it on the CPU loads neither
-    JAX nor the JAX package."""
+    """Importing the port and rendering with it on the CPU, a dense scene
+    on the megakernel path and a BVH scene on the wavefront path, loads
+    neither JAX nor the JAX package."""
     code = (
         "import sys, torch\n"
         "from cpppathtracer_tpu_torch.models.scene import demo_scene\n"
@@ -194,6 +195,11 @@ def test_port_imports_no_jax():
         "c = Camera.make(8, 6, origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0), device='cpu')\n"
         "r = ProgressiveRenderer(s, c, procedural_sky(8, 8), RenderConfig(8, 6, max_depth=2))\n"
         "assert torch.isfinite(r.step()).all()\n"
+        "from cpppathtracer_tpu_torch.integrator import render_radiance\n"
+        "from cpppathtracer_tpu_torch.models.presets import big_camera, big_scene\n"
+        "b = big_scene(96, bvh=True, device='cpu')\n"
+        "rad, _, _ = render_radiance(b, big_camera(96, 8, 6, device='cpu'), r.sky_tex, spp=1, max_depth=2)\n"
+        "assert b.bvh_meta is not None and torch.isfinite(rad).all()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'cpppathtracer_tpu.'))"
         " or m == 'cpppathtracer_tpu']\n"
         "assert not bad, bad\n"
@@ -212,5 +218,5 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         demo_scene(0).build()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Camera.make(8, 8)
-    with pytest.raises(NotImplementedError):
-        demo_scene(0).build(device="cpu", bvh=True)
+    scene = demo_scene(0).build(device="cpu", bvh=True)
+    assert scene.bvh_meta is not None and scene.bvh_dims[0] == scene.bvh_meta.shape[0]

@@ -10,8 +10,13 @@ from cpppathtracer_tpu_torch import convert
 
 
 def port_scene(scene):
-    fields = {k: np.asarray(getattr(scene, k)) for k in convert.SCENE_FIELDS}
-    return convert.scene_from_numpy(fields, scene.type_perm, scene.type_counts, device="cpu")
+    """The JAX scene in the port, with its BVH tables when it has them."""
+    names = list(convert.SCENE_FIELDS)
+    if scene.bvh_meta is not None:
+        names += list(convert.BVH_FIELDS)
+    fields = {k: np.asarray(getattr(scene, k)) for k in names}
+    return convert.scene_from_numpy(fields, scene.type_perm, scene.type_counts, device="cpu",
+                                    bvh_dims=scene.bvh_dims)
 
 
 def port_camera(cam):
