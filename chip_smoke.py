@@ -87,6 +87,52 @@ def time_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20):
+    """Device time per call of fn() under torch.profiler: the summed device
+    time of the kernels, memsets and copies it issues over `iters` calls,
+    and the time per call of each by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise AssertionError("torch.profiler recorded no device time")
+    return (sum(e.device_time_total for e in events) / 1e3 / iters,
+            {e.key[:40]: round(e.device_time_total / 1e3 / iters, 5) for e in events})
+
+
+def host_ms(fn, iters=50):
+    """Host time per call of fn() while the device keeps up: the enqueue of
+    `iters` calls on the host clock, before the closing synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e3 / iters
+
+
+def bits(t):
+    """A 32-bit plane's bit pattern, for bitwise comparisons."""
+    return t.view(torch.int32)
+
+
+def poison_tail(planes, n):
+    """Copies of 32-bit planes whose lanes [n, R) hold NaN (float planes) or
+    INT_MIN (int planes)."""
+    out = [p.clone() for p in planes]
+    for p in out:
+        bits(p)[n:] = 0x7FC00000 if p.dtype == torch.float32 else -2**31
+    return out
+
+
 def ops_per_ray_bounce(counts):
     n_s, n_p, n_c = counts
     return OPS_SPHERE * n_s + OPS_PLATFORM * n_p + OPS_CYLINDER * n_c + OPS_RAY_BOUNCE
@@ -541,7 +587,7 @@ def main():
     from cpppathtracer_tpu_torch.models.scene import demo_scene
     from cpppathtracer_tpu_torch.ops.cuda import build as kb
     from cpppathtracer_tpu_torch.ops.cuda.compact_kernel import (
-        stream_compact, stream_compact_plain, stream_expand, stream_expand_plain,
+        n_blocks, stream_compact, stream_compact_plain, stream_expand, stream_expand_plain,
     )
     from cpppathtracer_tpu_torch.inverse import InverseConfig, fit
     from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import build_geom_rows
@@ -612,34 +658,51 @@ def main():
     out_a = mega_trace(*trace_args, counts=gs.counts, depth=2, with_o=True)
     missed_a = out_a[3]
     payload = [pix, samp, *out_a[8], *out_a[1], *out_a[2], missed_a]
-    fills = [-1, -1] + [0.0] * 9 + [1.0]
-    packed, pos, n_alive = stream_compact(missed_a, payload, fills)
-    ref_c = stream_compact_plain(missed_a, payload, fills)
+    packed, offs, n_alive = stream_compact(missed_a, payload)
+    ref_c = stream_compact_plain(missed_a, payload)
     n = int(n_alive[0])
     log(f"[check] phase A leaves {n} of {r} rays alive ({n / r:.4f})")
-    for a, b in zip(packed + [pos, n_alive], ref_c[0] + [ref_c[1], ref_c[2]]):
-        if not torch.equal(a, b):
-            raise AssertionError("stream_compact differs from its plain version")
-    b_args = (tuple(packed[2:5]), tuple(packed[5:8]), packed[0], packed[1], 0, geom, ts, trt)
-    b_kw = dict(counts=gs.counts, depth=DEPTH - 2, start_bounce=2, thru=tuple(packed[8:11]),
-                n_alive=n_alive, alive_mask=packed[11])
+    if not (torch.equal(offs, ref_c[1]) and torch.equal(n_alive, ref_c[2]) and
+            all(torch.equal(bits(a)[:n], bits(b)[:n]) for a, b in zip(packed, ref_c[0]))):
+        raise AssertionError("stream_compact differs from its plain version")
+
+    def phase_b(planes):
+        args = (tuple(planes[2:5]), tuple(planes[5:8]), planes[0], planes[1], 0, geom, ts, trt)
+        kw = dict(counts=gs.counts, depth=DEPTH - 2, start_bounce=2, thru=tuple(planes[8:11]),
+                  n_alive=n_alive, alive_mask=planes[11])
+        return args, kw
+
+    b_args, b_kw = phase_b(packed)
     out_b = mega_trace(*b_args, **b_kw)
     ref_b = mega_trace_plain(*b_args, **b_kw)
     errs["mega_b"] = compare_trace(out_b, ref_b, "mega_trace phase B (start 2, n_alive, alive_mask)")
-    exp_planes = [*out_b[0], *out_b[1], *out_b[2], out_b[3], *out_b[6]]
+    b_planes = lambda out: [*out[0], *out[1], *out[2], out[3], *out[6]]
+    exp_planes = b_planes(out_b)
     exp_fills = [0.0] * 10 + [-1] * (DEPTH - 2)
-    back = stream_expand(missed_a, pos, exp_planes, exp_fills, n_alive)
-    back_ref = stream_expand_plain(missed_a, pos, exp_planes, exp_fills, n_alive)
-    for a, b in zip(back, back_ref):
-        if not torch.equal(a, b):
-            raise AssertionError("stream_expand differs from its plain version")
+    back = stream_expand(missed_a, offs, exp_planes, exp_fills)
+    back_ref = stream_expand_plain(missed_a, offs, exp_planes, exp_fills)
+    if not all(torch.equal(bits(a), bits(b)) for a, b in zip(back, back_ref)):
+        raise AssertionError("stream_expand differs from its plain version")
+    # nothing on the path reads a packed lane past n_alive: poison those lanes (NaN,
+    # INT_MIN) in phase B's inputs and outputs, and phase B and the expansion give the
+    # same bits
+    p_args, p_kw = phase_b(poison_tail(packed, n))
+    poisoned_b = mega_trace(*p_args, **p_kw)
+    flat_b = lambda out: [*b_planes(out), *out[4], out[5]]
+    same_b = all(torch.equal(bits(a), bits(b)) for a, b in zip(flat_b(poisoned_b), flat_b(out_b)))
+    back_p = stream_expand(missed_a, offs, poison_tail(b_planes(poisoned_b), n), exp_fills)
+    same_e = all(torch.equal(bits(a), bits(b)) for a, b in zip(back_p, back))
+    log(f"[check] packed tail [{n}, {r}) poisoned: phase B outputs bitwise equal {same_b}, "
+        f"stream_expand output bitwise equal {same_e}")
+    if not (same_b and same_e):
+        raise AssertionError("a kernel read a packed lane past n_alive")
     # round trip on 2^20 lanes, ~20% alive, with float and int planes
     g = torch.Generator(device=dev).manual_seed(0)
     missed_rt = (torch.rand(r, device=dev, generator=g) > 0.2).float()
     planes_rt = [torch.randn(r, device=dev, generator=g),
                  torch.randint(-2**31, 2**31 - 1, (r,), device=dev, dtype=torch.int32, generator=g)]
-    pk, ps, na = stream_compact(missed_rt, planes_rt, [0.0, 0])
-    rt = stream_expand(missed_rt, ps, pk, [7.0, -7], na)
+    pk, offs_rt, na = stream_compact(missed_rt, planes_rt)
+    rt = stream_expand(missed_rt, offs_rt, pk, [7.0, -7])
     alive_rt = missed_rt == 0
     for x, y, f in zip(planes_rt, rt, (7.0, -7)):
         if not (torch.equal(x[alive_rt], y[alive_rt]) and bool((y[~alive_rt] == f).all())):
@@ -779,23 +842,51 @@ def main():
     ms_mega = time_ms(lambda: (mega_trace(*trace_args, **a_kw), mega_trace(*b_args, **b_kw)), iters=5)
     plain_mega = time_ms(lambda: (mega_trace_plain(*trace_args, **a_kw), mega_trace_plain(*b_args, **b_kw)),
                          iters=2, warmup=1)
-    n_pay = len(payload)
-    bound_c = 4 * r * (1 + n_pay + n_pay + 1) / HBM_BYTES_PER_S
-    ms_c = time_ms(lambda: stream_compact(missed_a, payload, fills))
-    plain_c = time_ms(lambda: stream_compact_plain(missed_a, payload, fills), iters=3)
+    # the compaction: the miss plane and the alive lanes' payload words read, the packed
+    # words, offs and n_alive written (beside it two larger counts: every payload word read;
+    # every lane of every payload and packed plane moved, 4 R (2 + 2 P))
+    n_pay, nb_c = len(payload), n_blocks(r)
+    bytes_c = 4 * (r + 2 * n_pay * n + nb_c + 1)
+    bytes_c_all = 4 * (r + n_pay * r + n_pay * n + nb_c + 1)
+    bound_c = bytes_c / HBM_BYTES_PER_S
+    compact = lambda: stream_compact(missed_a, payload)
+    ms_c = time_ms(compact, iters=50)
+    dev_c, names_c = device_ms(compact)
+    host_c = host_ms(compact)
+    plain_c = time_ms(lambda: stream_compact_plain(missed_a, payload), iters=3)
     stacked = torch.stack([p.view(torch.int32) for p in payload])
     alive_mask = missed_a == 0
-    lib_c = time_ms(lambda: stacked[:, alive_mask])
-    bound_e = 4 * (r + n + np_b * n + np_b * r) / HBM_BYTES_PER_S
-    ms_e = time_ms(lambda: stream_expand(missed_a, pos, exp_planes, exp_fills, n_alive))
-    plain_e = time_ms(lambda: stream_expand_plain(missed_a, pos, exp_planes, exp_fills, n_alive), iters=3)
+    lib_c = time_ms(lambda: stacked[:, alive_mask], iters=50)
+    lib_dev_c, lib_names_c = device_ms(lambda: stacked[:, alive_mask])
+    # the expansion: the miss plane, offs and the n packed words of each plane read, every
+    # output word written
+    bytes_e = 4 * (r + nb_c + np_b * n + np_b * r)
+    bound_e = bytes_e / HBM_BYTES_PER_S
+    expand = lambda: stream_expand(missed_a, offs, exp_planes, exp_fills)
+    ms_e = time_ms(expand, iters=50)
+    dev_e, names_e = device_ms(expand)
+    host_e = host_ms(expand)
+    plain_e = time_ms(lambda: stream_expand_plain(missed_a, offs, exp_planes, exp_fills), iters=3)
     stacked_b = torch.stack([p.view(torch.int32) for p in exp_planes])[:, :n].contiguous()
     out_e = torch.zeros((np_b, r), dtype=torch.int32, device=dev)
 
     def lib_expand():
         out_e[:, alive_mask] = stacked_b
 
-    lib_e = time_ms(lib_expand)
+    lib_e = time_ms(lib_expand, iters=50)
+    lib_dev_e, lib_names_e = device_ms(lib_expand)
+    for what, ms, host, dev_ms, bound, lib, lib_dev, names, lib_names, plain in (
+            ("stream_compact", ms_c, host_c, dev_c, bound_c, lib_c, lib_dev_c, names_c, lib_names_c,
+             plain_c),
+            ("stream_expand", ms_e, host_e, dev_e, bound_e, lib_e, lib_dev_e, names_e, lib_names_e,
+             plain_e)):
+        log(f"[kernels] {what}: wrapper {ms:.5f} ms (host enqueue {host:.5f} ms), device "
+            f"{dev_ms:.5f} ms ({names}), bound {bound * 1e3:.5f} ms ({bound / (dev_ms * 1e-3):.3f} "
+            f"of it on the device); library wrapper {lib:.5f} ms, device {lib_dev:.5f} ms "
+            f"({lib_names}); plain {plain:.4f} ms")
+    log(f"[kernels] compaction bytes {bytes_c / 1e6:.2f} MB ({bytes_c_all / 1e6:.2f} MB with every "
+        f"payload word read, {bytes_c_all / HBM_BYTES_PER_S * 1e3:.5f} ms; every lane of every plane "
+        f"{4 * r * (2 + 2 * n_pay) / HBM_BYTES_PER_S * 1e3:.5f} ms); expansion {bytes_e / 1e6:.2f} MB")
     kernels = [
         dict(name="mega_trace", route="cuda", source="cpppathtracer_tpu_torch/csrc/mega_trace.cu",
              replaces="cpppathtracer_tpu/ops/pallas/mega_kernel.py:290",
@@ -805,11 +896,13 @@ def main():
         dict(name="stream_compact", route="cuda", source="cpppathtracer_tpu_torch/csrc/compact.cu",
              replaces="cpppathtracer_tpu/ops/pallas/compact_kernel.py:231",
              launches=launches["stream_compact"], max_abs_err=0.0, ms=ms_c, plain_ms=plain_c,
-             bound_ms=bound_c * 1e3, bound_by="bytes", library_ms=lib_c),
+             bound_ms=bound_c * 1e3, bound_by="bytes", library_ms=lib_c, device_ms=dev_c,
+             library_device_ms=lib_dev_c),
         dict(name="stream_expand", route="cuda", source="cpppathtracer_tpu_torch/csrc/compact.cu",
              replaces="cpppathtracer_tpu/ops/pallas/compact_kernel.py:311",
              launches=launches["stream_expand"], max_abs_err=0.0, ms=ms_e, plain_ms=plain_e,
-             bound_ms=bound_e * 1e3, bound_by="bytes", library_ms=lib_e),
+             bound_ms=bound_e * 1e3, bound_by="bytes", library_ms=lib_e, device_ms=dev_e,
+             library_device_ms=lib_dev_e),
     ]
     log(f"[kernels] mega_trace per sample (phase A + B): {ms_mega:.3f} ms, bound {bound_mega * 1e3:.4f} ms "
         f"({ops} ops per ray-bounce, {work_a} + {work_b} live ray-bounces; its {bytes_mega / 1e6:.1f} MB "

@@ -119,12 +119,11 @@ _SIGNATURES = {
     # o3 d3 thru3 pix samp | geom ts trt | n_alive amask | out_f out_o hits |
     # R n_s n_p n_c n_rep n_pad depth start_bounce seed | stream
     "poca_mega_trace": [_P] * 11 + [_P] * 3 + [_P] * 2 + [_P] * 3 + [_I] * 9 + [_P],
-    # missed planes(ptr array) n_planes fills(ptr array) out pos n_alive
-    # block_counts R | stream
-    "poca_stream_compact": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _P],
-    # missed pos packed(ptr array) n_planes fills(ptr array) out n_alive R | stream
-    "poca_stream_expand": [_P, _P, _P, _I, _P, _P, _P, _I, _P],
-    "poca_compact_scratch_ints": [_I],
+    # missed planes(ptr array) n_planes out stride offs n_alive status R | stream
+    "poca_stream_compact": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _P],
+    # missed offs packed(ptr array) n_planes fills(int array) out stride R | stream
+    "poca_stream_expand": [_P, _P, _P, _I, _P, _P, _I, _I, _P],
+    "poca_compact_block_lanes": [],
     # o3 d3 pix samp ts trt hits | 13 cotangent planes | out_tab out_od carry |
     # R n_pad depth seed smem_acc | stream
     "poca_mega_bwd": [_P] * 11 + [_P] * 13 + [_P] * 3 + [_I] * 5 + [_P],

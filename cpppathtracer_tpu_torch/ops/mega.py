@@ -7,11 +7,13 @@ Counterpart of ``cpppathtracer_tpu/ops/mega.py``: `mega_sample` (its
 Forward, survivor split: on the demo scene only about a fifth of the rays
 survive bounce 1, and the survivors are scattered over the pixels, so the
 trace runs bounces [0, 2) on every ray (phase A), packs the survivors to a
-dense prefix (stream_compact), runs the later bounces on the packed domain
-(phase B, whose threads past n_alive exit at once) and routes phase B's
-outputs back to their pixels (stream_expand).  RNG keys are per (pixel,
-sample, bounce), so the traced paths are bitwise those of the unsplit
-trace; radiance differs only in the order of its float32 sum.
+dense prefix (stream_compact; its lanes past n_alive are unspecified and
+never read), runs the later bounces on the packed domain (phase B, whose
+threads past n_alive exit at once) and routes phase B's outputs back to
+their pixels (stream_expand, through the compaction's per-block offsets).
+RNG keys are per (pixel, sample, bounce), so the traced paths are bitwise
+those of the unsplit trace; radiance differs only in the order of its
+float32 sum.
 
 Backward: the forward saves only the primary rays, the record tables and
 the per-bounce winner planes (i32[depth, R], the winner's grouped index on
@@ -136,10 +138,8 @@ def _trace(o, d, pix, samp, seed, depth, geom, ts, trt, counts):
     (rad_a, d_a, thru_a, missed_a, first_n, first_t, hit_a, _, o_a) = trace(
         o, d, pix, samp, seed, depth=split, with_o=True
     )
-    packed, pos, n_alive = stream_compact(
-        missed_a,
-        [pix, samp, *o_a, *d_a, *thru_a, missed_a],
-        [-1, -1] + [0.0] * 9 + [1.0],
+    packed, offs, n_alive = stream_compact(
+        missed_a, [pix, samp, *o_a, *d_a, *thru_a, missed_a]
     )
     nb = depth - split
     rad_b, md_b, mt_b, missed_b, _, _, hit_b, _ = trace(
@@ -148,8 +148,7 @@ def _trace(o, d, pix, samp, seed, depth, geom, ts, trt, counts):
         n_alive=n_alive, alive_mask=packed[11],
     )
     back = stream_expand(
-        missed_a, pos, [*rad_b, *md_b, *mt_b, missed_b, *hit_b],
-        [0.0] * 10 + [-1] * nb, n_alive,
+        missed_a, offs, [*rad_b, *md_b, *mt_b, missed_b, *hit_b], [0.0] * 10 + [-1] * nb
     )
     a_dead = missed_a > 0.0
     rad = tuple(rad_a[k] + back[k] for k in range(3))

@@ -17,6 +17,7 @@ from cpppathtracer_tpu_torch.models.scene import SceneBuilder, demo_scene
 from cpppathtracer_tpu_torch.ops import mega
 from cpppathtracer_tpu_torch.ops.cuda import build as kb
 from cpppathtracer_tpu_torch.ops.cuda.compact_kernel import (
+    BLOCK,
     stream_compact,
     stream_compact_plain,
     stream_expand,
@@ -81,29 +82,70 @@ def test_mega_trace_matches_plain_on_card(dev, phase_b):
     assert torch.allclose(fg, fr, rtol=1e-3, atol=1e-3)
 
 
+def _bits(t):
+    return t.view(torch.int32)
+
+
+def _misaligned(t):
+    """A contiguous copy of t that starts 4 bytes past a 16-byte boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    out.copy_(t)
+    return out
+
+
+def _miss_plane(r, share, rng):
+    """f32[R], 0 = alive: a random share alive, or alternating alive and
+    dead runs of 1 to 3000 lanes ("runs")."""
+    if share != "runs":
+        return np.where(rng.uniform(size=r) < share, 0.0, 1.0).astype(np.float32)
+    missed, k, alive = np.ones(r, np.float32), 0, False
+    while k < r:
+        run = rng.randint(1, 3000)
+        missed[k:k + run] = 0.0 if alive else 1.0
+        k, alive = k + run, not alive
+    return missed
+
+
 @pytest.mark.gpu
-def test_compaction_matches_plain_on_card(dev):
-    """stream_compact / stream_expand bitwise equal to their plain
-    versions, and expand(compact(x)) == x on the alive lanes."""
-    g = torch.Generator(device=dev).manual_seed(0)
-    missed = (torch.rand(R + 17, device=dev, generator=g) > 0.2).float()
-    planes = [torch.randn(R + 17, device=dev, generator=g),
-              torch.randint(-1000, 1000, (R + 17,), dtype=torch.int32, device=dev, generator=g)]
-    fills = [1.0, -1]
-    kb.reset_launches()
-    got = stream_compact(missed, planes, fills)
-    ref = stream_compact_plain(missed, planes, fills)
-    for a, b in zip([*got[0], got[1], got[2]], [*ref[0], ref[1], ref[2]]):
-        assert torch.equal(a, b)
-    back = stream_expand(missed, got[1], got[0], [0.0, 7], got[2])
-    back_ref = stream_expand_plain(missed, ref[1], ref[0], [0.0, 7], ref[2])
+@pytest.mark.parametrize("share", [0.0, 0.2, 1.0, "runs"], ids=["dead", "p20", "alive", "runs"])
+@pytest.mark.parametrize("r", [1, 31, BLOCK - 1, BLOCK, BLOCK + 17, 2**16 + 17, 2**22])
+def test_compaction_matches_plain_on_card(dev, r, share):
+    """stream_compact bitwise equal to its plain version on packed lanes
+    [0, n_alive), offs and n_alive; stream_expand bitwise equal to its
+    plain version with the packed tail poisoned (NaN / INT_MIN); and
+    expand(compact(x)) == x on the alive lanes, the fills elsewhere.
+    Float and int planes, with the miss plane and the payload 16-byte
+    aligned (the kernels' vector path) and not."""
+    rng = np.random.RandomState(r)
+    missed = torch.from_numpy(_miss_plane(r, share, rng)).to(dev)
+    x_f = torch.from_numpy(rng.normal(size=r).astype(np.float32)).to(dev)
+    x_i = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, r).astype(np.int32)).to(dev)
     alive = missed == 0
-    for a, b, x in zip(back, back_ref, planes):
-        assert torch.equal(a, b)
-        assert torch.equal(a[alive], x[alive])
-    assert kb.LAUNCHES["stream_compact"] == kb.LAUNCHES["stream_expand"] == 1
+    fills = [7.5, -7]
+    kb.reset_launches()
+    for m in (missed, _misaligned(missed)):
+        for planes in ([x_f, x_i], [x_f, x_i, _misaligned(x_f)]):
+            packed, offs, n_alive = stream_compact(m, planes)
+            ref = stream_compact_plain(m, planes)
+            n = int(n_alive[0])
+            assert n == int(alive.sum())
+            assert torch.equal(offs, ref[1]) and torch.equal(n_alive, ref[2])
+            for a, b in zip(packed, ref[0]):
+                assert a.dtype == b.dtype and torch.equal(_bits(a)[:n], _bits(b)[:n])
+            for a in packed:
+                _bits(a)[n:] = -2**31 if a.dtype == torch.int32 else 0x7FC00000
+            got = stream_expand(m, offs, packed[:2], fills)
+            want = stream_expand_plain(m, ref[1], ref[0][:2], fills)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+            assert torch.equal(got[0][alive], x_f[alive]) and torch.equal(got[1][alive], x_i[alive])
+            assert bool((got[0][~alive] == 7.5).all()) and bool((got[1][~alive] == -7).all())
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["stream_compact"] == kb.LAUNCHES["stream_expand"] == 4
     with pytest.raises(ValueError):
-        stream_compact(missed, [planes[0].double()], [0.0])
+        stream_compact(missed, [x_f.double()])
+    with pytest.raises(ValueError):
+        stream_expand(missed, offs[:-1], packed[:2], fills)
 
 
 @pytest.mark.gpu

@@ -17,6 +17,7 @@ from cpppathtracer_tpu.ops.pallas.mega_kernel import build_tables_T as j_tables_
 from cpppathtracer_tpu_torch.ops import planar
 from cpppathtracer_tpu_torch.ops.cuda import build as kb
 from cpppathtracer_tpu_torch.ops.cuda.compact_kernel import (
+    BLOCK,
     stream_compact,
     stream_compact_plain,
     stream_expand,
@@ -268,50 +269,57 @@ def _compact_inputs(seed, r=4 * CHUNK):
     return missed, f, i
 
 
+def _block_counts(missed):
+    """Alive lanes of each block of BLOCK lanes, in numpy."""
+    alive = (missed == 0).astype(np.int64)
+    pad = np.pad(alive, (0, -len(alive) % BLOCK))
+    return pad.reshape(-1, BLOCK).sum(1)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_stream_compact_plain_matches_pallas(seed):
-    """Packed order and alive-lane values equal the Pallas kernel's stream
-    (its 128-lane bubbles are not part of the contract, so the stream is
-    read segment by segment)."""
+    """The plain compaction's offs are the exclusive per-block alive
+    counts, and the packed lanes [0, n_alive) read through them block by
+    block equal the Pallas kernel's stream read through its own offs_rows
+    (its 128-lane bubbles are not part of the contract; CHUNK = BLOCK)."""
+    assert CHUNK == BLOCK
     missed, f, i = _compact_inputs(seed)
-    r = missed.shape[0]
     planes_j = (jnp.asarray(i[0]), jnp.asarray(f[0]), jnp.asarray(f[1]), jnp.asarray(i[1]), jnp.asarray(f[2]))
-    comp, offs, _ = j_compact.stream_compact(
+    comp, offs_rows, _ = j_compact.stream_compact(
         jnp.asarray(missed), planes_j, fills=(0,) * 5, chunk=CHUNK, interpret=True
     )
-    comp, offs = np.asarray(comp), np.asarray(offs)
-    seg = []
-    for k in range(r // CHUNK):
-        cnt = int((missed[k * CHUNK:(k + 1) * CHUNK] == 0).sum())
-        seg.append(comp[:, offs[k] * 128: offs[k] * 128 + cnt])
-    seg = np.concatenate(seg, axis=1)
+    comp, offs_rows = np.asarray(comp), np.asarray(offs_rows)
     planes_t = [_t(i[0]), _t(f[0]), _t(f[1]), _t(i[1]), _t(f[2])]
-    packed, pos, n_alive = stream_compact_plain(_t(missed), planes_t, [-1, 0.0, 0.0, -1, 0.0])
+    packed, offs, n_alive = stream_compact_plain(_t(missed), planes_t)
+    counts = _block_counts(missed)
+    np.testing.assert_array_equal(offs.numpy(), np.cumsum(counts) - counts)
     n = int(n_alive[0])
-    assert n == seg.shape[1] == int((missed == 0).sum())
-    for p in range(5):
-        np.testing.assert_array_equal(packed[p].numpy().view(np.int32)[:n], seg[p])
-    # the Pallas local-position plane, made global, is the port's pos
-    chunk_of = np.concatenate([np.full(int((missed[k * CHUNK:(k + 1) * CHUNK] == 0).sum()), k)
-                               for k in range(r // CHUNK)])
-    np.testing.assert_array_equal(pos.numpy()[:n], seg[5] + chunk_of * CHUNK)
-    assert (pos.numpy()[n:] == -1).all() and (packed[0].numpy()[n:] == -1).all()
+    assert n == int((missed == 0).sum()) == counts.sum()
+    for k, cnt in enumerate(counts):
+        seg = comp[:, offs_rows[k] * 128: offs_rows[k] * 128 + cnt]
+        for p in range(5):
+            got = packed[p].numpy().view(np.int32)[offs[k]: offs[k] + cnt]
+            np.testing.assert_array_equal(got, seg[p])
+        # the Pallas local-position plane names the same lanes
+        lanes = np.nonzero(missed[k * CHUNK:(k + 1) * CHUNK] == 0)[0]
+        np.testing.assert_array_equal(seg[5], lanes)
 
 
 def test_stream_expand_plain_matches_pallas():
-    """expand(compact(x)) equals x on alive lanes and the fills elsewhere,
-    for both packages."""
+    """expand(compact(x)) through the port's offs equals the Pallas
+    expansion through its offs_rows: x on alive lanes and the fills
+    elsewhere."""
     missed, f, i = _compact_inputs(7)
     planes_j = (jnp.asarray(f[0]), jnp.asarray(i[0]))
-    comp, offs, _ = j_compact.stream_compact(
+    comp, offs_rows, _ = j_compact.stream_compact(
         jnp.asarray(missed), planes_j, fills=(0, 0), chunk=CHUNK, interpret=True
     )
     ref = j_compact.stream_expand(
-        jnp.asarray(missed), comp, offs, dtypes=(jnp.float32, jnp.int32),
+        jnp.asarray(missed), comp, offs_rows, dtypes=(jnp.float32, jnp.int32),
         fills=(0, -5), chunk=CHUNK, interpret=True,
     )
-    packed, pos, n_alive = stream_compact_plain(_t(missed), [_t(f[0]), _t(i[0])], [0.0, 0])
-    got = stream_expand_plain(_t(missed), pos, packed, [0.0, -5], n_alive)
+    packed, offs, _ = stream_compact_plain(_t(missed), [_t(f[0]), _t(i[0])])
+    got = stream_expand_plain(_t(missed), offs, packed, [0.0, -5])
     alive = missed == 0
     for g, r, x in zip(got, ref, (f[0], i[0])):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
@@ -319,10 +327,60 @@ def test_stream_expand_plain_matches_pallas():
     assert (got[1].numpy()[~alive] == -5).all()
 
 
+def _clustered(r, rng):
+    """Alive runs of random lengths (1 to 3000 lanes) between dead runs."""
+    missed = np.ones(r, np.float32)
+    k, alive = 0, False
+    while k < r:
+        run = rng.randint(1, 3000)
+        if alive:
+            missed[k:k + run] = 0.0
+        k += run
+        alive = not alive
+    return missed
+
+
+@pytest.mark.parametrize("r,share", [(4096, 0.0), (4096, 1.0), (1, 1.0), (1023, 0.2),
+                                     (2065, 0.2), (9000, "runs")],
+                         ids=["all_dead", "all_alive", "r1", "r1023", "r2065", "clustered"])
+def test_compaction_plain_cases(r, share):
+    """All-dead, all-alive, ragged R and clustered runs against numpy:
+    packed[:n_alive] is x[alive], offs the exclusive per-block counts, and
+    the gather-form expansion gives x back on alive lanes, the fills
+    elsewhere.  Poison past n_alive shows that expansion reads no packed
+    lane there."""
+    rng = np.random.RandomState(r)
+    if share == "runs":
+        missed = _clustered(r, rng)
+    else:
+        missed = np.where(rng.uniform(size=r) < share, 0.0, rng.uniform(0.5, 2, r)).astype(np.float32)
+    f = rng.normal(size=r).astype(np.float32)
+    i = rng.randint(-2**31, 2**31 - 1, r).astype(np.int32)
+    alive = missed == 0
+    packed, offs, n_alive = stream_compact_plain(_t(missed), [_t(f), _t(i)])
+    n = int(n_alive[0])
+    assert n == alive.sum()
+    counts = _block_counts(missed)
+    np.testing.assert_array_equal(offs.numpy(), np.cumsum(counts) - counts)
+    np.testing.assert_array_equal(packed[0].numpy()[:n], f[alive])
+    np.testing.assert_array_equal(packed[1].numpy()[:n], i[alive])
+    for p, poison in zip(packed, (float("nan"), -2**31)):
+        p[n:] = poison
+    back = stream_expand_plain(_t(missed), offs, packed, [3.0, -7])
+    np.testing.assert_array_equal(back[0].numpy(), np.where(alive, f, np.float32(3.0)))
+    np.testing.assert_array_equal(back[1].numpy(), np.where(alive, i, np.int32(-7)))
+    assert back[0].dtype == torch.float32 and back[1].dtype == torch.int32
+
+
 def test_compaction_wrappers_take_plain_on_cpu():
+    """On CPU tensors the wrappers are the plain versions and count
+    nothing."""
     missed, f, i = _compact_inputs(9, r=1000)
     kb.reset_launches()
-    packed, pos, n_alive = stream_compact(_t(missed), [_t(f[0])], [0.0])
-    back = stream_expand(_t(missed), pos, packed, [0.0], n_alive)
+    packed, offs, n_alive = stream_compact(_t(missed), [_t(f[0])])
+    back = stream_expand(_t(missed), offs, packed, [0.0])
     assert kb.LAUNCHES["stream_compact"] == kb.LAUNCHES["stream_expand"] == 0
+    ref = stream_compact_plain(_t(missed), [_t(f[0])])
+    assert torch.equal(packed[0], ref[0][0]) and torch.equal(offs, ref[1]) and torch.equal(n_alive, ref[2])
     np.testing.assert_array_equal(back[0].numpy()[missed == 0], f[0][missed == 0])
+    assert (back[0].numpy()[missed != 0] == 0.0).all()
