@@ -12,8 +12,9 @@ its gradients against the plain backward's, three steps of
 per-bounce wavefront path at 1024^2 x 16 spp x depth 8, then 16
 progressive 1280x720 frames; the dense winner launch on the same path
 with POCA_BVH=0 POCA_MEGA=0) through the kernels, times each kernel
-beside its bound, its plain version and a PyTorch library yardstick, and
-prints:
+beside its bound, its plain version and a PyTorch library yardstick (the
+walk also per bounce; the walk and the backward with their registers and
+resident blocks per SM), and prints:
   - the card's name and power limit (nvidia-smi);
   - one JSON line {"kernels": [...]};
   - as the last line, {"ok": true, "device": {...}}.
@@ -279,10 +280,10 @@ def record_bvh_rays(calls):
 
     real = fast.bvh_winner_index
 
-    def recording(o, d, tmin, tmax, *tables, leaf_size):
+    def recording(o, d, tmin, tmax, *tables, **kw):
         calls.append((tuple(c.clone() for c in o), tuple(c.clone() for c in d), tmin.clone(),
                       tmax.clone()))
-        return real(o, d, tmin, tmax, *tables, leaf_size=leaf_size)
+        return real(o, d, tmin, tmax, *tables, **kw)
 
     fast.bvh_winner_index = recording
     try:
@@ -293,10 +294,21 @@ def record_bvh_rays(calls):
 
 def bvh_ops():
     """csrc/bvh.cuh's FP32 operation counts: (per slab test, per leaf row
-    of a sphere, platform, cylinder, padding)."""
+    of a sphere, platform, cylinder)."""
     text = _BVH_CUH.read_text()
     get = lambda name: int(re.search(rf"#define POCA_BVH_OPS_{name} (\d+)", text).group(1))
-    return get("SLAB"), tuple(get(t) for t in ("SPHERE", "PLATFORM", "CYLINDER", "PAD"))
+    return get("SLAB"), tuple(get(t) for t in ("SPHERE", "PLATFORM", "CYLINDER"))
+
+
+def kernel_info(fn, *args, n):
+    """The first `n` ints a kernel library's info function writes."""
+    import ctypes
+
+    info = (ctypes.c_int * n)()
+    err = fn(*args, ctypes.addressof(info))
+    if err:
+        raise AssertionError(f"{fn.__name__}: CUDA error {err}")
+    return list(info)
 
 
 def take(ray, lanes):
@@ -379,6 +391,12 @@ def bvh_phase(dev, sky):
     camera = big_camera(BVH_N, W, H, device=dev)
     gs = group_scene(scene)
     tables = (gs.bvh_meta, gs.bvh_aabb, gs.bvh_objs)
+    n_leaves = gs.bvh_objs.shape[0] // k
+    regs, local, per_sm, in_smem = kernel_info(kb.library().poca_bvh_info, m, n_leaves, n=4)
+    log(f"[bvh] walk kernel: {regs} registers, {local} local bytes a thread, {per_sm} blocks of "
+        f"256 threads per SM; its layout: {gs.bvh_layout[2].shape[0]} rows in {n_leaves} leaves, "
+        f"nodes and headers {32 * m + 16 * n_leaves} bytes in "
+        f"{'shared memory' if in_smem else 'device memory, read through the cache'}")
 
     # one sample of the slice render with every bounce's rays kept (also the warm-up)
     calls = []
@@ -525,27 +543,39 @@ def bvh_phase(dev, sky):
     # 8. kernel rows.  The walk per sample: the 8 per-bounce launches of sample 0 on its
     # recorded rays; the dense launch on the 1024^2 primaries of big_scene(4096).
     ops_slab, ops_row = bvh_ops()
+    layout = gs.bvh_layout  # the scene's, as on the main path
     walk = lambda fn, **kw: [fn(*c, *tables, leaf_size=k, **kw) for c in calls]
-    ms_bvh = time_ms(lambda: walk(bvh_winner_index), iters=5, warmup=1)
+    ms_bvh = time_ms(lambda: walk(bvh_winner_index, layout=layout), iters=5, warmup=1)
     t0 = time.perf_counter()
     counted = walk(bvh_winner_index_plain, with_counts=True)
     torch.cuda.synchronize()
     plain_bvh = (time.perf_counter() - t0) * 1e3
     # the kernel against its plain version on every bounce of the sample, 2^20 lanes each
-    err_bvh = max(float((a - c[0]).abs().max()) for a, c in zip(walk(bvh_winner_index), counted))
+    err_bvh = max(float((a - c[0]).abs().max())
+                  for a, c in zip(walk(bvh_winner_index, layout=layout), counted))
     log(f"[check] bvh_winner_index vs plain, the {len(calls)} bounces of one sample of "
         f"big_scene({BVH_N}) at 1024^2: max |diff| {err_bvh}")
     if err_bvh:
         raise AssertionError("bvh_winner_index differs from its plain version on the sample's bounces")
+    # each bounce's launch, and the share of paths still alive there (a path that missed
+    # keeps its ray, so its origin stops changing)
+    ms_bounce = [time_ms(lambda c=c: bvh_winner_index(*c, *tables, leaf_size=k, layout=layout),
+                         iters=5, warmup=1) for c in calls]
+    alive = [1.0] + [float(((a[0][0] != b[0][0]) | (a[0][1] != b[0][1]) | (a[0][2] != b[0][2]))
+                           .float().mean()) for b, a in zip(calls, calls[1:])]
+    log(f"[kernels] bvh_winner_index per bounce (ms): {[round(v, 4) for v in ms_bounce]}, sum "
+        f"{sum(ms_bounce):.3f} ms (the 8 launches timed together: {ms_bvh:.3f} ms); paths alive "
+        f"{[round(v, 4) for v in alive]}")
+
     n_slab = sum(int(c[1].sum()) for c in counted)
-    n_rows = [sum(int(c[2][t].sum()) for c in counted) for t in range(4)]
+    n_rows = [sum(int(c[2][t].sum()) for c in counted) for t in range(3)]
     ops = ops_slab * n_slab + sum(o * n for o, n in zip(ops_row, n_rows))
     table_bytes = sum(t.numel() * t.element_size() for t in tables)
     bytes_bvh = DEPTH * (r * 4 * (8 + 1) + table_bytes)
     ops_s, bytes_s = ops / FP32_OPS_PER_S, bytes_bvh / HBM_BYTES_PER_S
     log(f"[kernels] bvh_winner_index per sample (8 launches): {ms_bvh:.3f} ms, bound "
         f"{max(ops_s, bytes_s) * 1e3:.4f} ms ({n_slab} slab tests x {ops_slab} + leaf rows "
-        f"S/P/C/pad {n_rows} x {ops_row} = {ops:.4g} ops, {ops_s * 1e3:.4f} ms; "
+        f"S/P/C {n_rows} x {ops_row} = {ops:.4g} ops, {ops_s * 1e3:.4f} ms; "
         f"{bytes_bvh / 1e6:.1f} MB {bytes_s * 1e3:.4f} ms); plain {plain_bvh:.1f} ms; "
         f"{n_slab / (r * DEPTH):.1f} slab tests and {sum(n_rows) / (r * DEPTH):.1f} leaf rows per ray")
 
@@ -571,7 +601,8 @@ def bvh_phase(dev, sky):
         dict(name="bvh_winner_index", route="cuda", source="cpppathtracer_tpu_torch/csrc/bvh.cu",
              replaces="cpppathtracer_tpu/ops/pallas/bvh_kernel.py:234",
              launches=launches["bvh_winner_index"], max_abs_err=err_bvh, ms=ms_bvh, plain_ms=plain_bvh,
-             bound_ms=max(ops_s, bytes_s) * 1e3, bound_by=by(ops_s, bytes_s), library_ms=None),
+             bound_ms=max(ops_s, bytes_s) * 1e3, bound_by=by(ops_s, bytes_s), library_ms=None,
+             ms_per_bounce=ms_bounce, registers=regs, blocks_per_sm=per_sm),
         dict(name="winner_index", route="cuda", source="cpppathtracer_tpu_torch/csrc/winner.cu",
              replaces="cpppathtracer_tpu/ops/pallas/intersect_kernel.py:419",
              launches=dense_launches["winner_index"], max_abs_err=err_w, ms=ms_w, plain_ms=plain_w,
@@ -616,7 +647,7 @@ def main():
     log(f"[build] {lib_path} in {time.perf_counter() - t0:.1f} s")
     ptxas = lib_path.parent / "ptxas.log"
     for line in ptxas.read_text().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "registers" in line or "spill" in line or "entry" in line or line.startswith("=="):
             log(f"[ptxas] {line.strip()}")
 
     # ---- phase 2: each kernel against its plain version on the card
@@ -915,15 +946,19 @@ def main():
     by_bwd = "operations" if ops_s > bytes_s else "bytes"
     ms_bwd = time_ms(lambda: mega_bwd(*bwd_args), iters=10)
     plain_bwd_ms = time_ms(lambda: mega_bwd_plain(*bwd_args), iters=1, warmup=1)
+    n_pad = ts.shape[1]
+    regs_bwd, local_bwd, per_sm_bwd = kernel_info(kb.library().poca_mega_bwd_info, n_pad, 1, n=3)
     kernels.append(
         dict(name="mega_bwd", route="cuda", source="cpppathtracer_tpu_torch/csrc/mega_bwd.cu",
              replaces="cpppathtracer_tpu/ops/pallas/mega_bwd_kernel.py:389",
              launches=train_launches["mega_bwd"], max_abs_err=err_bwd, ms=ms_bwd,
-             plain_ms=plain_bwd_ms, bound_ms=bound_bwd * 1e3, bound_by=by_bwd, library_ms=None))
+             plain_ms=plain_bwd_ms, bound_ms=bound_bwd * 1e3, bound_by=by_bwd, library_ms=None,
+             registers=regs_bwd, blocks_per_sm=per_sm_bwd))
     log(f"[kernels] mega_bwd per sample: {ms_bwd:.3f} ms, bound {bound_bwd * 1e3:.4f} ms "
         f"({OPS_BWD_RAY_BOUNCE} ops per ray-bounce that hit, {live_bwd} of them, "
         f"{ops_s * 1e3:.4f} ms; its {bytes_bwd / 1e6:.1f} MB {bytes_s * 1e3:.4f} ms); "
-        f"plain {plain_bwd_ms:.1f} ms")
+        f"plain {plain_bwd_ms:.1f} ms; {regs_bwd} registers, {local_bwd} local bytes a thread, "
+        f"{per_sm_bwd} resident blocks of 128 threads per SM")
     # ---- phase 7: BVH scenes through the per-bounce wavefront path
     kernels += bvh_phase(dev, sky)
     print(card, flush=True)

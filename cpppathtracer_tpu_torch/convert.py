@@ -33,18 +33,20 @@ def scene_from_numpy(fields: dict, type_perm, type_counts, device=None, bvh_dims
     """A Scene from the JAX Scene's arrays (`fields`, keyed by field name)
     and its static partition metadata.  With `bvh_dims` (the JAX Scene's
     (M, K)), `fields` also holds its BVH tables bvh_meta, bvh_aabb and
-    bvh_objs, which are carried across as they are."""
+    bvh_objs, which are carried across as they are, with the walk kernel's
+    layout of them."""
     dev = resolve_device(device)
     names = dict(SCENE_FIELDS, **(BVH_FIELDS if bvh_dims else {}))
     missing = set(names) - set(fields)
     if missing:
         raise ValueError(f"missing scene fields: {sorted(missing)}")
-    return Scene(
+    scene = Scene(
         **{k: _tensor(fields[k], dt, dev) for k, dt in names.items()},
         type_perm=tuple(int(i) for i in type_perm),
         type_counts=tuple(int(c) for c in type_counts),
         bvh_dims=tuple(int(v) for v in bvh_dims),
     )
+    return scene.with_bvh_layout() if bvh_dims else scene
 
 
 def camera_from_numpy(fields: dict, width: int, height: int, device=None) -> Camera:

@@ -77,24 +77,33 @@ POCA_HD V3 normalize(V3 v) {
 // planar.object_hit_attrs_p for the winner's primitive only (the other
 // branches are discarded by its selects, so skipping them changes nothing,
 // in value or in gradient).
+// The intermediates of each primitive share their storage: only the
+// winner's are ever set or read, and the backward holds them across the
+// shading adjoint, so a union keeps them in as many registers as the
+// largest needs rather than in all three's sum.
 struct HitFwd {
   int prim;
   float t;
   V3 n;
   float dy_safe;
-  // sphere
-  V3 ac, pc;
-  float a, b, cq, disc, sq, a_safe, t_sn, t_sf, t_s, r_safe;
-  bool has, v_sn, v_sf;
-  // platform
-  float t_pl;
-  bool v_pl;
-  // cylinder
-  float t_capk[2];
-  bool v_capk[2];
-  float axc, rx, rz, bc, cc, disc_c, sq_c, ax_safe, t_ln, t_lf, t_cap, t_lat, t_c;
-  bool has_c, ok_n, ok_f, is_cap;
-  V3 radial;
+  union {
+    struct {  // sphere
+      V3 ac, pc;
+      float a, b, cq, disc, sq, a_safe, t_sn, t_sf, t_s, r_safe;
+      bool has, v_sn, v_sf;
+    };
+    struct {  // platform
+      float t_pl;
+      bool v_pl;
+    };
+    struct {  // cylinder
+      float t_capk[2];
+      bool v_capk[2];
+      float axc, rx, rz, bc, cc, disc_c, sq_c, ax_safe, t_ln, t_lf, t_cap, t_lat, t_c;
+      bool has_c, ok_n, ok_f, is_cap;
+      V3 radial;
+    };
+  };
 };
 
 POCA_HD void hit_attrs(int prim, V3 c, float radius, float y_pos, float height, V3 o, V3 d,

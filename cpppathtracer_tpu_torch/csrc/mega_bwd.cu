@@ -12,19 +12,26 @@
 // sequential grid step, kept the carries in [depth, tile] VMEM stacks
 // (masked one-hot inserts: Mosaic has no dynamic indexing) and summed the
 // table cotangents in output blocks that the sequential grid revisits:
-// - one thread per ray; each thread keeps its entry carries (10 words per
-//   bounce, depth <= 32) in local memory, indexed directly;
+// - one thread per ray; each thread keeps the entry carries of the bounces
+//   that hit (9 words each, depth <= 32; alive is one index, the first
+//   miss) in local memory;
+// - at least 4 resident blocks of 128 threads per SM (__launch_bounds__),
+//   at 128 registers with no spills (the HitFwd union of bounce.cuh, and
+//   the sweep's per-ray inputs read again where used): the per-ray body is
+//   a long dependent chain (the bounce body twice, the adjoints, sqrt /
+//   exp / tanh), and 152 registers left 12 warps an SM to hide it;
 // - each block stages both record tables in shared memory (6.5 KB for the
 //   93-object demo scene) and loops over rays with a grid stride, so the
 //   grid is one wave of resident blocks;
 // - table cotangents: blocks run in parallel and in no order, so a block
-//   sums its rays' cotangents in shared memory with shared atomics and
-//   adds its sums to device memory with one global atomicAdd per nonzero
-//   entry at the end.  Where the 2 x 17 x n_pad floats of tables and sums
-//   do not fit (n_pad > 1024, set by the wrapper) the cotangents go
-//   straight to device memory with global atomics.  Atomics make ct_ts and
-//   ct_trt depend on the order of the adds, so they are held to a
-//   tolerance, not bitwise.
+//   sums its rays' cotangents in shared memory and adds its sums to device
+//   memory with one global atomicAdd per nonzero entry at the end.  Lanes
+//   of a warp that hit one object sum their cotangents with shuffles
+//   first and issue one shared atomic per field (TableAcc::add_rec).
+//   Where the 2 x 17 x n_pad floats of tables and sums do not fit (n_pad >
+//   1024, set by the wrapper) the cotangents go straight to device memory
+//   with global atomics.  Atomics make ct_ts and ct_trt depend on the
+//   order of the adds, so they are held to a tolerance, not bitwise.
 // What bounds it: bytes, narrowly.  Per ray it reads 6 + 2 + 13 words and
 // the depth winner planes and writes 6; per ray-bounce that hit it
 // recomputes the bounce body twice (forward sweep and reverse sweep, no
@@ -36,9 +43,14 @@
 #include "mega_bwd.cuh"
 
 #define POCA_BWD_BLOCK 128
+// resident blocks per SM the kernel is compiled for when the sums are in
+// shared memory; the device-memory sums' tables alone fill most of an SM's
+// shared memory, so that form has no target
+#define POCA_BWD_MIN_BLOCKS 4
 
 template <bool SMEM_ACC>
-__global__ void __launch_bounds__(POCA_BWD_BLOCK) mega_bwd_kernel(BwdParams p) {
+__global__ void __launch_bounds__(POCA_BWD_BLOCK, SMEM_ACC ? POCA_BWD_MIN_BLOCKS : 1)
+    mega_bwd_kernel(BwdParams p) {
   extern __shared__ float smem[];
   const int np = p.n_pad;
   float* ts = smem;
@@ -64,6 +76,42 @@ __global__ void __launch_bounds__(POCA_BWD_BLOCK) mega_bwd_kernel(BwdParams p) {
   }
 }
 
+typedef void (*BwdKernel)(BwdParams);
+
+// The kernel for a call, its dynamic shared memory per block, and how many
+// of its blocks an SM holds and how many SMs there are.
+static cudaError_t pick(int n_pad, int smem_acc, BwdKernel* kern, size_t* smem, int* per_sm,
+                        int* sms) {
+  *kern = smem_acc ? mega_bwd_kernel<true> : mega_bwd_kernel<false>;
+  *smem = sizeof(float) * (POCA_F_S + POCA_F_R) * (size_t)n_pad * (smem_acc ? 2 : 1);
+  cudaError_t e;
+  if (*smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(*kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+    if (e != cudaSuccess) return e;
+  }
+  int dev = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, *kern, POCA_BWD_BLOCK, *smem);
+}
+
+// What a call at this n_pad launches: registers, local bytes per thread and
+// resident blocks per SM, into info[0..2].
+extern "C" int poca_mega_bwd_info(int n_pad, int smem_acc, int* info) {
+  BwdKernel kern;
+  size_t smem = 0;
+  int per_sm = 0, sms = 0;
+  cudaError_t e = pick(n_pad, smem_acc, &kern, &smem, &per_sm, &sms);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes fa;
+  if ((e = cudaFuncGetAttributes(&fa, kern)) != cudaSuccess) return (int)e;
+  info[0] = fa.numRegs;
+  info[1] = (int)fa.localSizeBytes;
+  info[2] = per_sm;
+  return 0;
+}
+
 extern "C" int poca_mega_bwd(
     const float* ox, const float* oy, const float* oz,
     const float* dx, const float* dy, const float* dz,
@@ -75,23 +123,16 @@ extern "C" int poca_mega_bwd(
     float* out_tab, float* out_od, float* carry,
     int R, int n_pad, int depth, int seed, int smem_acc, cudaStream_t stream) {
   if (R <= 0) return 0;
-  if (depth < 1 || depth > POCA_MAX_DEPTH || n_pad < 1) return (int)cudaErrorInvalidValue;
+  if (depth < 1 || depth > POCA_MAX_DEPTH || n_pad < 1)
+    return (int)cudaErrorInvalidValue;
   BwdParams p = {ox, oy, oz, dx, dy, dz, pix, samp, ts, trt, hits,
                  {ct0, ct1, ct2, ct3, ct4, ct5, ct6, ct7, ct8, ct9, ct10, ct11, ct12},
                  out_tab, out_od, carry, R, n_pad, depth, (uint32_t)seed};
-  void (*kern)(BwdParams) = smem_acc ? mega_bwd_kernel<true> : mega_bwd_kernel<false>;
-  const size_t smem = sizeof(float) * (POCA_F_S + POCA_F_R) * (size_t)n_pad * (smem_acc ? 2 : 1);
-  cudaError_t e;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  BwdKernel kern;
+  size_t smem = 0;
+  int per_sm = 0, sms = 0;
   // one wave of resident blocks; each loops over rays
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, POCA_BWD_BLOCK, smem);
+  cudaError_t e = pick(n_pad, smem_acc, &kern, &smem, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
   const int need = (R + POCA_BWD_BLOCK - 1) / POCA_BWD_BLOCK;
   const int wave = (per_sm > 0 ? per_sm : 1) * sms;

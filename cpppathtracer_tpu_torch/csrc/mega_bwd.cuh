@@ -55,7 +55,12 @@ POCA_HD RecGrad rec_zero() {
 }
 
 // Accumulates table cotangents: atomics on the card (into shared or
-// device memory), plain adds in the host build.
+// device memory), plain adds in the host build.  On the card the lanes of
+// a warp that add a record at once are grouped by object
+// (__match_any_sync); each group sums its fields with shuffles and its
+// lowest lane issues one atomic per nonzero field: lanes that hit one
+// object together, such as the demo's floor, serialised on the same shared
+// words.
 struct TableAcc {
   float* a;
   int np;
@@ -68,11 +73,33 @@ struct TableAcc {
 #endif
   }
   POCA_HD void add_rec(int idx, const RecGrad& g) {
-    add(0, idx, g.center.x); add(1, idx, g.center.y); add(2, idx, g.center.z);
-    add(3, idx, g.radius); add(4, idx, g.y_pos); add(5, idx, g.height);
-    add(8, idx, g.smoothness); add(9, idx, g.reflectivity); add(10, idx, g.ior);
-    add(POCA_F_S + 0, idx, g.kd.x); add(POCA_F_S + 1, idx, g.kd.y);
-    add(POCA_F_S + 2, idx, g.kd.z); add(POCA_F_S + 3, idx, g.emission);
+    float v[13] = {g.center.x, g.center.y, g.center.z, g.radius, g.y_pos, g.height,
+                   g.smoothness, g.reflectivity, g.ior, g.kd.x, g.kd.y, g.kd.z, g.emission};
+#ifdef __CUDA_ARCH__
+    // a tree sum over each group (the lanes of `mask` all run it): each
+    // round a lane adds the value of the next remaining peer above it,
+    // and the lanes at odd ranks among those left drop out
+    const unsigned mask = __activemask();
+    const unsigned peers = __match_any_sync(mask, idx);
+    const int lane = threadIdx.x & 31;
+    int rank = __popc(peers & ((1u << lane) - 1u));
+    unsigned above = peers & (0xfffffffeu << lane);
+    while (__any_sync(mask, above)) {
+      const int next = __ffs(above) - 1;
+#pragma unroll
+      for (int f = 0; f < 13; ++f) {
+        const float t = __shfl_sync(mask, v[f], next < 0 ? lane : next);
+        if (next >= 0) v[f] += t;
+      }
+      above &= __ballot_sync(mask, !(rank & 1));
+      rank >>= 1;
+    }
+    if (lane != __ffs(peers) - 1) return;
+#endif
+    const int field[13] = {0, 1, 2, 3, 4, 5, 8, 9, 10,
+                           POCA_F_S + 0, POCA_F_S + 1, POCA_F_S + 2, POCA_F_S + 3};
+#pragma unroll
+    for (int f = 0; f < 13; ++f) add(field[f], idx, v[f]);
   }
 };
 
@@ -327,6 +354,15 @@ POCA_HD void shade_bwd(const BounceFwd& f, V3 in_dir, V3 ct_bounce, V3 ct_atten,
   ct_normal = add(ct_normal, scale(in_dir, ct_dn));
 }
 
+// i unchanged, its value hidden from the optimiser, so that loads indexed
+// by it are issued where they stand rather than hoisted
+POCA_HD int opaque(int i) {
+#ifdef __CUDA_ARCH__
+  asm volatile("" : "+r"(i));
+#endif
+  return i;
+}
+
 // The adjoint of one bounce that hit (enc >= 0), from the entry carry
 // (o, d, thru, alive) and its recomputed forward f.  In: the cotangents of
 // the carry after the bounce; out: those of the entry carry, and the
@@ -359,32 +395,49 @@ POCA_HD void bounce_bwd(const BounceFwd& f, V3 o, V3 d, V3 thru, bool alive, boo
 }
 
 // ------------------------------------------------------------- one ray
+// The entry carry of bounce b (o, d, thru: 9 words) at c[9 b]
+#define POCA_CARRY_WORDS 9
+
+POCA_HD void put_carry(float* c, int b, V3 o, V3 d, V3 thru) {
+  float* w = c + POCA_CARRY_WORDS * b;
+  w[0] = o.x; w[1] = o.y; w[2] = o.z;
+  w[3] = d.x; w[4] = d.y; w[5] = d.z;
+  w[6] = thru.x; w[7] = thru.y; w[8] = thru.z;
+}
+
+POCA_HD void get_carry(const float* c, int b, V3& o, V3& d, V3& thru) {
+  const float* w = c + POCA_CARRY_WORDS * b;
+  o = v3(w[0], w[1], w[2]);
+  d = v3(w[3], w[4], w[5]);
+  thru = v3(w[6], w[7], w[8]);
+}
+
 POCA_HD void mega_bwd_ray(const BwdParams& p, int i, const float* ts, const float* trt,
                           TableAcc acc) {
   const int R = p.R, np = p.n_pad, depth = p.depth;
   const uint32_t pix = (uint32_t)p.pix[i], samp = (uint32_t)p.samp[i];
-  // entry carries of every bounce (local memory)
-  V3 co[POCA_MAX_DEPTH], cd[POCA_MAX_DEPTH], cth[POCA_MAX_DEPTH];
-  bool cal[POCA_MAX_DEPTH];
+  float carry[POCA_CARRY_WORDS * POCA_MAX_DEPTH];  // local memory on the card
 
-  // forward sweep: mega_trace's carry updates, winners from the planes
+  // forward sweep: mega_trace's carry updates, winners from the planes.
+  // Only bounces that hit keep their entry carry (the reverse sweep reads
+  // no other); the path is alive on entry to bounce b while b <= first_miss.
   V3 o = v3(p.ox[i], p.oy[i], p.oz[i]);
   V3 d = v3(p.dx[i], p.dy[i], p.dz[i]);
   V3 thru = v3(1.0f, 1.0f, 1.0f);
-  bool alive = true;
+  int first_miss = depth;
   for (int b = 0; b < depth; ++b) {
-    co[b] = o; cd[b] = d; cth[b] = thru; cal[b] = alive;
     const int enc = p.hits[b * R + i];
     if (enc >= 0) {
+      put_carry(carry, b, o, d, thru);
       float u1, u2, u3;
       uniforms3(pix, samp, (uint32_t)(1 + b), p.seed, u1, u2, u3);
       BounceFwd f;
       bounce_body(ts, trt, np, enc, o, d, b == 0 ? 0.0f : POCA_TMIN_BOUNCE, u1, u2, u3, f);
-      if (alive) thru = mul(thru, f.s.atten);
+      if (b <= first_miss) thru = mul(thru, f.s.atten);
       o = f.pos;
       d = normalize(f.s.bounce);
-    } else {
-      alive = false;
+    } else if (first_miss == depth) {
+      first_miss = b;
     }
   }
   if (p.carry) {
@@ -392,28 +445,35 @@ POCA_HD void mega_bwd_ray(const BwdParams& p, int i, const float* ts, const floa
     c[0 * R + i] = o.x; c[1 * R + i] = o.y; c[2 * R + i] = o.z;
     c[3 * R + i] = d.x; c[4 * R + i] = d.y; c[5 * R + i] = d.z;
     c[6 * R + i] = thru.x; c[7 * R + i] = thru.y; c[8 * R + i] = thru.z;
-    c[9 * R + i] = alive ? 0.0f : 1.0f;
+    c[9 * R + i] = first_miss < depth ? 1.0f : 0.0f;
   }
 
-  // reverse sweep
-  const V3 ct_rad = v3(p.ct[0][i], p.ct[1][i], p.ct[2][i]);
-  const V3 ct_fn = v3(p.ct[9][i], p.ct[10][i], p.ct[11][i]);
-  const float ct_ft = p.ct[12][i];
+  // reverse sweep.  The cotangents that enter every bounce (ct_rad) or the
+  // first (ct_first_n, ct_first_t), and the pixel and sample keys, are
+  // read again at each bounce that hit rather than held in registers
+  // across the sweep (with the HitFwd union, that leaves the kernel no
+  // spills at 128 registers, 4 blocks an SM).
   V3 ct_o = zero3();
   V3 ct_d = v3(p.ct[3][i], p.ct[4][i], p.ct[5][i]);
   V3 ct_thru = v3(p.ct[6][i], p.ct[7][i], p.ct[8][i]);
   for (int b = depth - 1; b >= 0; --b) {
     const int enc = p.hits[b * R + i];
     if (enc < 0) {  // a miss keeps the carry; first_n = -d at bounce 0
-      if (b == 0) ct_d = sub(ct_d, ct_fn);
+      if (b == 0) ct_d = sub(ct_d, v3(p.ct[9][i], p.ct[10][i], p.ct[11][i]));
       continue;
     }
+    V3 bo, bd, bth;
+    get_carry(carry, b, bo, bd, bth);
+    const int io = opaque(i);
+    const V3 ct_rad = v3(p.ct[0][io], p.ct[1][io], p.ct[2][io]);
+    const V3 ct_fn = v3(p.ct[9][io], p.ct[10][io], p.ct[11][io]);
+    const float ct_ft = p.ct[12][io];
     float u1, u2, u3;
-    uniforms3(pix, samp, (uint32_t)(1 + b), p.seed, u1, u2, u3);
+    uniforms3((uint32_t)p.pix[io], (uint32_t)p.samp[io], (uint32_t)(1 + b), p.seed, u1, u2, u3);
     BounceFwd f;
-    bounce_body(ts, trt, np, enc, co[b], cd[b], b == 0 ? 0.0f : POCA_TMIN_BOUNCE, u1, u2, u3, f);
+    bounce_body(ts, trt, np, enc, bo, bd, b == 0 ? 0.0f : POCA_TMIN_BOUNCE, u1, u2, u3, f);
     RecGrad g = rec_zero();
-    bounce_bwd(f, co[b], cd[b], cth[b], cal[b], b == 0, ct_rad, ct_fn, ct_ft, ct_o, ct_d,
+    bounce_bwd(f, bo, bd, bth, b <= first_miss, b == 0, ct_rad, ct_fn, ct_ft, ct_o, ct_d,
                ct_thru, g);
     acc.add_rec(enc, g);
   }

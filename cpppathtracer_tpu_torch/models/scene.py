@@ -6,8 +6,9 @@ also scales emission), emission f32[N], smoothness f32[N] (Phong exponent
 1000**smoothness), reflectivity f32[N], ior f32[N], tex_id i32[N].
 
 Large scenes carry skip-pointer BVH tables over the grouped object order
-(`with_bvh`, built on the host by ``ops/bvh.py``), which the per-bounce
-wavefront path walks with ``csrc/bvh.cu``.
+(`with_bvh`, built on the host by ``ops/bvh.py``) and the walk kernel's
+layout of them, which the per-bounce wavefront path walks with
+``csrc/bvh.cu``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from cpppathtracer_tpu_torch.ops.bvh import refit_skip_tables, skip_bvh_tables
+from cpppathtracer_tpu_torch.ops.cuda.bvh_kernel import bvh_leaf_layout
 from cpppathtracer_tpu_torch.types import MaterialType, PrimitiveType, resolve_device
 
 # Scenes with at least this many objects get BVH tables when built, as in
@@ -52,6 +54,8 @@ class Scene:
     bvh_aabb: torch.Tensor | None = None  # f32[M,8] (min.xyz, max.xyz, pad)
     bvh_objs: torch.Tensor | None = None  # f32[L*K,8] leaf object rows
     bvh_dims: tuple = ()
+    # the walk kernel's layout of the tables (bvh_leaf_layout), made with them
+    bvh_layout: tuple | None = None
 
     @property
     def num_objects(self) -> int:
@@ -85,7 +89,13 @@ class Scene:
             bvh_aabb=torch.from_numpy(tables["node_aabb"]).to(dev),
             bvh_objs=torch.from_numpy(tables["leaf_objs"]).to(dev),
             bvh_dims=(int(tables["node_meta"].shape[0]), int(tables["leaf_size"])),
-        )
+        ).with_bvh_layout()
+
+    def with_bvh_layout(self) -> "Scene":
+        """Attach the walk kernel's layout of the attached tables, built
+        from them (with_bvh and refit_bvh call it)."""
+        return dataclasses.replace(self, bvh_layout=bvh_leaf_layout(
+            self.bvh_meta, self.bvh_aabb, self.bvh_objs, self.bvh_dims[1]))
 
     def refit_bvh(self) -> "Scene":
         """Refit attached tables to moved geometry without a rebuild
@@ -100,7 +110,7 @@ class Scene:
         dev = self.device
         return dataclasses.replace(
             self, bvh_aabb=torch.from_numpy(aabb).to(dev), bvh_objs=torch.from_numpy(objs).to(dev)
-        )
+        ).with_bvh_layout()
 
     def with_geometry(self, **fields) -> "Scene":
         """Edit geometry fields (center, radius, y_pos, height) and refit

@@ -2,16 +2,21 @@
 
 Counterpart of ``cpppathtracer_tpu/ops/pallas/bvh_kernel.py``
 (``pallas_bvh_winner_index``).  The CUDA kernel is ``csrc/bvh.cu`` (the
-walk itself is ``csrc/bvh.cuh``): one thread per ray, each walking the
-preorder nodes on its own, where the TPU walked a whole ray tile in
-lock-step.  :func:`bvh_winner_index_plain` computes the same function per
-ray, so the kernel and the plain version are held bitwise on the card.
+walk itself is ``csrc/bvh.cuh``): persistent warps that walk 32 rays in
+lock-step, each ray on its own path through the preorder nodes, over the
+walk's own layout of the tables (:func:`bvh_leaf_layout`: leaf rows
+grouped by type in 16-byte words, padding dropped), where the TPU walked
+a whole ray tile along one path.  :func:`bvh_winner_index_plain` computes
+the same function per ray on the JAX-equal tables, so the kernel and the
+plain version are held bitwise on the card.
 
 Tables (``ops/bvh.py``): node_meta i32[M, 2] (escape, leaf_id or -1),
 node_aabb f32[M, 8] (min.xyz, max.xyz, pad), leaf_objs f32[L*K, 8] (cx cy
 cz radius y_pos height prim_type gidx).  The result is the closest hit's
 grouped index, 0 when nothing is hit: the gather epilogue recomputes t
-and decides the hit.
+and decides the hit.  The kernel needs tmax <= INF, which the layout's
+dropped padding rows rely on (``csrc/bvh.cuh``), and every caller in the
+package passes INF.
 """
 
 from __future__ import annotations
@@ -22,12 +27,60 @@ from cpppathtracer_tpu_torch.ops.cuda import build as kb
 from cpppathtracer_tpu_torch.types import INF
 
 
-def bvh_winner_index(o, d, tmin, tmax, node_meta, node_aabb, leaf_objs, *, leaf_size):
+def bvh_leaf_layout(node_meta, node_aabb, leaf_objs, leaf_size):
+    """The walk kernel's layout of the tables, on their device:
+
+    nodes f32[M, 8]: min.xyz, escape, max.xyz, leaf id (the two ints as
+    float bits), two 16-byte words a node;
+    leaves i32[L, 4]: each leaf's first word of `rows`, its spheres,
+    cylinders and platforms;
+    rows f32[W, 4]: each leaf's non-padding rows of `leaf_objs`, spheres
+    first, then cylinders, then platforms, each type in table order, in
+    16-byte words: a sphere (cx, cy, cz, radius), a cylinder (cx, cy, cz,
+    radius) (height, 0, 0, 0), a platform (y_pos, 0, 0, 0);
+    gidx i32[W]: each row's grouped index at its first word (0 elsewhere).
+
+    ``Scene.with_bvh`` and ``refit_bvh`` build it with the tables, so a
+    scene's layout always matches its tables."""
+    k = leaf_size
+    n_leaves = leaf_objs.shape[0] // k
+    dev = leaf_objs.device
+    bits = node_meta.contiguous().view(torch.float32)
+    nodes = torch.cat([node_aabb[:, 0:3], bits[:, 0:1], node_aabb[:, 3:6], bits[:, 1:2]], 1)
+    pt = leaf_objs[:, 6]
+    # the phase of each row: sphere 0, cylinder 1, platform 2, padding 3
+    phase = torch.where(pt == 0, 0, torch.where(pt == 2, 1, torch.where(pt == 1, 2, 3)))
+    key = torch.arange(leaf_objs.shape[0], device=dev) // k * 4 + phase
+    order = torch.sort(key, stable=True).indices
+    order = order[phase[order] < 3]
+    src, ph = leaf_objs[order], phase[order]
+    words = torch.where(ph == 1, 2, 1)
+    at = torch.cumsum(words, 0) - words  # each row's first word
+    n_words = int(words.sum())
+    rows = torch.zeros((n_words, 4), dtype=torch.float32, device=dev)
+    rows[at] = torch.where((ph == 2)[:, None], torch.zeros_like(src[:, 0:4]), src[:, 0:4])
+    rows[at[ph == 2], 0] = src[ph == 2, 4]
+    rows[at[ph == 1] + 1, 0] = src[ph == 1, 5]
+    gidx = torch.zeros((n_words,), dtype=torch.int32, device=dev)
+    gidx[at] = src[:, 7].to(torch.int32)
+    counts = torch.bincount(key, minlength=4 * n_leaves).view(n_leaves, 4)[:, :3]
+    leaf_words = counts[:, 0] + 2 * counts[:, 1] + counts[:, 2]
+    first = torch.cumsum(leaf_words, 0) - leaf_words
+    leaves = torch.cat([first[:, None], counts], 1).to(torch.int32)
+    return nodes.contiguous(), leaves.contiguous(), rows, gidx
+
+
+def bvh_winner_index(o, d, tmin, tmax, node_meta, node_aabb, leaf_objs, *, leaf_size,
+                     layout=None):
     """Grouped winner index i32[R] of planar rays (o, d tuples of f32[R];
     tmin, tmax f32[R]) by the skip-pointer walk over the tables.
 
-    CUDA tensors launch ``csrc/bvh.cu``; CPU tensors take
-    :func:`bvh_winner_index_plain`."""
+    `layout` is :func:`bvh_leaf_layout` of the same tables, built here when
+    not given.  CUDA tensors launch ``csrc/bvh.cu``, whose precondition is
+    tmax <= INF: on a ray with a larger tmax that hits nothing it may
+    return another index than the plain version (the wrapper does not
+    check, which would cost a synchronisation per launch).  CPU tensors
+    take :func:`bvh_winner_index_plain`."""
     dev = tmin.device
     if dev.type == "cpu":
         return bvh_winner_index_plain(o, d, tmin, tmax, node_meta, node_aabb, leaf_objs,
@@ -43,16 +96,24 @@ def bvh_winner_index(o, d, tmin, tmax, node_meta, node_aabb, leaf_objs, *, leaf_
     kb.require(leaf_objs, "leaf_objs", torch.float32, (leaf_objs.shape[0], 8), dev)
     if leaf_size < 1 or leaf_objs.shape[0] % leaf_size:
         raise ValueError(f"leaf_objs has {leaf_objs.shape[0]} rows, not a multiple of {leaf_size}")
-    out = torch.empty((r,), dtype=torch.int32, device=dev)
+    n_leaves = leaf_objs.shape[0] // leaf_size
+    nodes, leaves, rows, gidx = layout if layout is not None else bvh_leaf_layout(
+        node_meta, node_aabb, leaf_objs, leaf_size)
+    kb.require(nodes, "layout nodes", torch.float32, (m, 8), dev)
+    kb.require(leaves, "layout leaves", torch.int32, (n_leaves, 4), dev)
+    kb.require(rows, "layout rows", torch.float32, (rows.shape[0], 4), dev)
+    kb.require(gidx, "layout gidx", torch.int32, (rows.shape[0],), dev)
+    if any(t.data_ptr() % 16 for t in (nodes, leaves, rows)):
+        raise ValueError("the walk's layout tables must be 16-byte aligned")
+    out = torch.empty((r + 1,), dtype=torch.int32, device=dev)  # word r: the ray counter
     with torch.cuda.device(dev):
         err = kb.library().poca_bvh_winner_index(
-            *[t.data_ptr() for t in (*o, *d, tmin, tmax)],
-            node_meta.data_ptr(), node_aabb.data_ptr(), leaf_objs.data_ptr(), out.data_ptr(),
-            r, m, leaf_size, kb.stream_handle(tmin),
+            *[t.data_ptr() for t in (*o, *d, tmin, tmax, nodes, leaves, rows, gidx, out)],
+            r, m, n_leaves, kb.stream_handle(tmin),
         )
     kb.check(err, "bvh_winner_index")
     kb.LAUNCHES["bvh_winner_index"] += 1
-    return out
+    return out[:r]
 
 
 def _inv(v):

@@ -43,6 +43,7 @@ class GroupedScene:
     bvh_aabb: torch.Tensor | None = None
     bvh_objs: torch.Tensor | None = None
     bvh_dims: tuple = ()
+    bvh_layout: tuple | None = None  # Scene.bvh_layout
 
 
 def group_scene(scene) -> GroupedScene:
@@ -70,7 +71,7 @@ def group_scene(scene) -> GroupedScene:
         center=center, radius=radius, y_pos=y_pos, height=height,
         table_s=table_s, table_r=table_r, counts=tuple(scene.type_counts),
         bvh_meta=scene.bvh_meta, bvh_aabb=scene.bvh_aabb, bvh_objs=scene.bvh_objs,
-        bvh_dims=tuple(scene.bvh_dims),
+        bvh_dims=tuple(scene.bvh_dims), bvh_layout=scene.bvh_layout,
     )
 
 
@@ -93,7 +94,7 @@ def intersect_and_gather_planar(gs, o, d, tmin, tmax):
     ray = ([flat(c) for c in o], [flat(c) for c in d], flat(tmin), flat(tmax))
     if use_bvh(gs):
         gidx = bvh_winner_index(*ray, gs.bvh_meta, gs.bvh_aabb, gs.bvh_objs,
-                                leaf_size=gs.bvh_dims[1])
+                                leaf_size=gs.bvh_dims[1], layout=gs.bvh_layout)
     else:
         gidx = winner_index(gs.counts, *ray, build_geom_rows(gs).detach())
     return planar.gather_epilogue_p(gs.table_s, gs.table_r, o, d, tmin, tmax, gidx)

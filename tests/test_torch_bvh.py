@@ -1,8 +1,9 @@
 """The port's BVH against the JAX package: the skip-pointer tables, refit,
-the walk's plain version against the Pallas kernel in interpret mode (and
-against the dense winner), the walk of csrc/bvh.cuh built for the host,
-and the wavefront path's hit record.  tests/test_torch_cuda.py holds the
-CUDA kernels against the plain versions on a card."""
+the walk kernel's layout of them, the walk's plain version against the
+Pallas kernel in interpret mode (and against the dense winner), the walk
+of csrc/bvh.cuh built for the host, and the wavefront path's hit record.
+tests/test_torch_cuda.py holds the CUDA kernels against the plain versions
+on a card."""
 
 import ctypes
 import dataclasses
@@ -22,7 +23,12 @@ from cpppathtracer_tpu.types import Rays
 from cpppathtracer_tpu_torch.models import presets
 from cpppathtracer_tpu_torch.ops import fast, planar
 from cpppathtracer_tpu_torch.ops.cuda import build as kb
-from cpppathtracer_tpu_torch.ops.cuda.bvh_kernel import bvh_winner_index, bvh_winner_index_plain
+from cpppathtracer_tpu_torch.models.scene import SceneBuilder
+from cpppathtracer_tpu_torch.ops.cuda.bvh_kernel import (
+    bvh_leaf_layout,
+    bvh_winner_index,
+    bvh_winner_index_plain,
+)
 from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import (
     build_geom_rows,
     winner_index,
@@ -31,6 +37,7 @@ from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import (
 from cpppathtracer_tpu_torch.types import INF
 
 from torch_port_helpers import port_scene
+from torch_scenes import tie_rays, tie_scene
 
 torch.set_num_threads(1)
 
@@ -75,11 +82,63 @@ def test_refit_and_staleness_match_jax():
     got_moved = dataclasses.replace(got, center=_t(center))
     assert got_moved.bvh_is_stale() and ref_moved.bvh_is_stale()
     assert not got.bvh_is_stale()
+    old_rows = got.bvh_layout[2]
     for g, r in ((got_moved.refit_bvh(), ref_moved.refit_bvh()),
                  (got.with_geometry(center=_t(center)), ref.with_geometry(center=jnp.asarray(center)))):
         assert not g.bvh_is_stale()
         for k in TABLES:
             assert np.array_equal(getattr(g, k).numpy(), np.asarray(getattr(r, k))), k
+        # the walk kernel's layout is rebuilt from the refitted tables
+        _check_scene_layout(g)
+        assert not torch.equal(g.bvh_layout[2], old_rows)
+
+
+def _check_scene_layout(scene):
+    """The layout a scene carries is bvh_leaf_layout of its tables, bit for
+    bit (leaf id -1 is a NaN as a float), and the grouping hands it on."""
+    tables = (scene.bvh_meta, scene.bvh_aabb, scene.bvh_objs)
+    for a, b in zip(scene.bvh_layout, bvh_leaf_layout(*tables, scene.bvh_dims[1])):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert fast.group_scene(scene).bvh_layout is scene.bvh_layout
+
+
+@pytest.mark.parametrize("n,leaf_size", [(220, None), (2064, None), (220, 8)],
+                         ids=["220", "2064", "220-leaf8"])
+def test_bvh_leaf_layout(n, leaf_size):
+    """The walk kernel's layout: nodes carry the boxes and meta as they
+    are; each leaf's rows are its non-padding rows of leaf_objs, spheres,
+    then cylinders, then platforms, each type in table order, in 16-byte
+    words with their grouped indices beside; the headers count them."""
+    scene = presets.big_scene(n, bvh=leaf_size is None, device="cpu")
+    if leaf_size is not None:
+        scene = scene.with_bvh(leaf_size)
+    m, k = scene.bvh_dims
+    nodes, leaves, rows, gidx = bvh_leaf_layout(scene.bvh_meta, scene.bvh_aabb, scene.bvh_objs, k)
+    assert torch.equal(nodes[:, [0, 1, 2, 4, 5, 6]], scene.bvh_aabb[:, :6])
+    assert torch.equal(nodes[:, [3, 7]].contiguous().view(torch.int32), scene.bvh_meta)
+    objs = scene.bvh_objs.reshape(-1, k, 8)
+    assert leaves.shape == (objs.shape[0], 4) and leaves.dtype == torch.int32
+    words = leaves[:, 1] + 2 * leaves[:, 2] + leaves[:, 3]
+    assert int(leaves[0, 0]) == 0 and rows.shape == (int(words.sum()), 4)
+    assert torch.equal(leaves[1:, 0], torch.cumsum(words, 0)[:-1].to(torch.int32))
+    assert int((scene.bvh_objs[:, 6] >= 0).sum()) == int(leaves[:, 1:].sum())
+    zero = torch.zeros(3)
+    for leaf, (first, n_s, n_c, n_p) in enumerate(leaves.tolist()):
+        src = objs[leaf]
+        assert (n_s, n_c, n_p) == tuple(int((src[:, 6] == t).sum()) for t in (0, 2, 1))
+        sph, cyl, plat = (src[src[:, 6] == t] for t in (0, 2, 1))
+        q = first
+        for row in sph:
+            assert torch.equal(rows[q], row[0:4]) and int(gidx[q]) == int(row[7])
+            q += 1
+        for row in cyl:
+            assert torch.equal(rows[q], row[0:4]) and int(gidx[q]) == int(row[7])
+            assert float(rows[q + 1, 0]) == float(row[5]) and torch.equal(rows[q + 1, 1:], zero)
+            q += 2
+        for row in plat:
+            assert float(rows[q, 0]) == float(row[4]) and torch.equal(rows[q, 1:], zero)
+            assert int(gidx[q]) == int(row[7])
+            q += 1
 
 
 # ------------------------------------------------------------------- rays
@@ -136,11 +195,11 @@ def case(request):
         rays.tmin, rays.tmax, jscene.bvh_meta, jscene.bvh_aabb, jscene.bvh_objs,
         m=m, k=k, tile=128, interpret=True,
     ))
-    gs = fast.group_scene(port_scene(jscene))
+    scene = port_scene(jscene)
     ray = (tuple(_t(o[:, i]) for i in range(3)), tuple(_t(d[:, i]) for i in range(3)),
            torch.zeros(r), torch.full((r,), INF))
-    return dict(name=request.param, gs=gs, ray=ray, hits=t_dense < 1e29, i_dense=i_dense,
-                i_bvh=i_bvh, k=k)
+    return dict(name=request.param, scene=scene, gs=fast.group_scene(scene), ray=ray,
+                hits=t_dense < 1e29, i_dense=i_dense, i_bvh=i_bvh, k=k)
 
 
 def _plain(case, **kw):
@@ -192,30 +251,72 @@ def host_walk(tmp_path_factory):
     subprocess.run([gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC", "-I",
                     str(CSRC), str(TESTS / "bvh_host.cpp"), "-o", str(lib)], check=True, timeout=120)
     so = ctypes.CDLL(str(lib))
-    so.poca_bvh_winner_host.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+    so.poca_bvh_winner_host.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 2
     so.poca_bvh_winner_host.restype = ctypes.c_int
 
-    def run(o, d, tmin, tmax, meta, aabb, objs, k):
+    def run(o, d, tmin, tmax, layout):
         r = tmin.shape[0]
         out = torch.empty(r, dtype=torch.int32)
         nodes = torch.empty(r, dtype=torch.int32)
-        rows = torch.empty((4, r), dtype=torch.int32)
-        ptrs = [t.data_ptr() for t in (*o, *d, tmin, tmax, meta, aabb, objs, out, nodes, rows)]
-        assert so.poca_bvh_winner_host(*ptrs, r, meta.shape[0], k) == 0
+        rows = torch.empty((3, r), dtype=torch.int32)
+        ptrs = [t.data_ptr() for t in (*o, *d, tmin, tmax, *layout, out, nodes, rows)]
+        assert so.poca_bvh_winner_host(*ptrs, r, layout[0].shape[0]) == 0
         return out, nodes, rows
 
     return run
 
 
+def _check_host_walk(got, ref, k):
+    """The host build's indices, slab tests and sphere / platform /
+    cylinder rows equal the plain version's lane by lane (the plain
+    version also counts padding rows: K rows a leaf)."""
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert torch.equal(got[2], ref[2][:3])
+    assert int(ref[1].min()) >= 1 and int(ref[2].sum()) % k == 0
+
+
+def test_scene_carries_bvh_layout(case):
+    """A scene carried across from the JAX package carries the walk
+    kernel's layout of its tables."""
+    _check_scene_layout(case["scene"])
+
+
 def test_bvh_walk_host_build_matches_plain(case, host_walk):
-    """The kernel's walk, compiled for the host, equals the plain version
-    bitwise: indices, slab tests and leaf rows by type, lane by lane."""
+    """The kernel's walk over the scene's grouped layout, compiled for the
+    host, equals the plain version on the JAX-equal tables bitwise:
+    indices, slab tests and leaf rows by type, lane by lane."""
     gs = case["gs"]
-    got = host_walk(*case["ray"], gs.bvh_meta, gs.bvh_aabb, gs.bvh_objs, case["k"])
-    ref = _plain(case, with_counts=True)
-    for a, b in zip(got, ref):
-        assert torch.equal(a, b)
-    assert int(ref[1].min()) >= 1 and int(ref[2].sum()) % case["k"] == 0
+    got = host_walk(*case["ray"], gs.bvh_layout)
+    _check_host_walk(got, _plain(case, with_counts=True), case["k"])
+
+
+def test_bvh_walk_host_build_exact_ties(host_walk):
+    """Exact ties within a leaf (lowest grouped index) and across leaves
+    (the leaf the walk reaches first): the host build of the grouped walk
+    equals the plain version bitwise, and on some lanes both keep a tied
+    object other than the lowest-indexed one."""
+    gs = fast.group_scene(tie_scene())
+    ray = tie_rays(2048)
+    tables = (gs.bvh_meta, gs.bvh_aabb, gs.bvh_objs)
+    k = gs.bvh_dims[1]
+    got = host_walk(*ray, gs.bvh_layout)
+    ref = bvh_winner_index_plain(*ray, *tables, leaf_size=k, with_counts=True)
+    _check_host_walk(got, ref, k)
+    # every object's t on every ray: the objects tied with the winner
+    n = gs.table_s.shape[0]
+    t_all = torch.stack([planar.gather_epilogue_p(gs.table_s, gs.table_r, *ray,
+                                                  torch.full_like(ref[0], j))[0]["t"]
+                         for j in range(n)])
+    win = ref[0].long()
+    t_win = t_all.gather(0, win[None])[0]
+    hit = t_win < INF
+    tied = (t_all == t_win[None]) & hit[None]
+    lowest = torch.where(tied, torch.arange(n)[:, None], n).amin(0)
+    n_tied = int((tied.sum(0) > 1).sum())
+    later = hit & (win != lowest)
+    print(f"{int(hit.sum())} of {win.numel()} lanes hit, {n_tied} of them on a tie, "
+          f"{int(later.sum())} kept a tied object other than the lowest-indexed")
+    assert int(hit.sum()) > win.numel() // 2 and n_tied > 100 and int(later.sum()) > 0
 
 
 @pytest.mark.parametrize("bvh", ["1", "0"], ids=["bvh", "dense"])

@@ -14,7 +14,8 @@ import torch
 
 from cpppathtracer_tpu_torch.models.camera import Camera
 from cpppathtracer_tpu_torch.models.scene import SceneBuilder, demo_scene
-from cpppathtracer_tpu_torch.ops import mega
+from cpppathtracer_tpu_torch.ops import fast, mega
+from cpppathtracer_tpu_torch.ops.cuda import bvh_kernel
 from cpppathtracer_tpu_torch.ops.cuda import build as kb
 from cpppathtracer_tpu_torch.ops.cuda.compact_kernel import (
     BLOCK,
@@ -27,7 +28,10 @@ from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import build_geom_rows
 from cpppathtracer_tpu_torch.ops.cuda.mega_bwd_kernel import mega_bwd, mega_bwd_plain
 from cpppathtracer_tpu_torch.ops.cuda.mega_kernel import build_tables_T, mega_trace, mega_trace_plain
 from cpppathtracer_tpu_torch.ops.fast import group_scene
+from cpppathtracer_tpu_torch.types import INF, MaterialType
 from cpppathtracer_tpu_torch.utils.rng import uniforms4
+
+from torch_scenes import tie_rays, tie_scene
 
 R = 1 << 16
 
@@ -173,11 +177,11 @@ def test_wrappers_check_their_arguments(dev):
 # ------------------------------------------------------------- backward
 
 
-def _bwd_inputs(dev, gs, width, depth, seed=0):
-    """1024^2-style primaries of the bench camera, their winner planes from
-    mega_trace, and random cotangents from a seeded generator."""
-    cam = Camera.make(width, width, origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0),
-                      device=dev)
+def _bwd_inputs(dev, gs, width, depth, seed=0, origin=(130.0, 103.0, 130.0)):
+    """1024^2-style primaries of the bench camera (or one at `origin`
+    looking at the origin), their winner planes from mega_trace, and
+    random cotangents from a seeded generator."""
+    cam = Camera.make(width, width, origin=origin, look_at=(0.0, 0.0, 0.0), device=dev)
     r = width * width
     pix = torch.arange(r, dtype=torch.int32, device=dev)
     samp = torch.full((r,), 5, dtype=torch.int32, device=dev)
@@ -222,6 +226,26 @@ def test_mega_bwd_matches_plain_on_card(dev, width, depth):
     torch.cuda.synchronize()
     assert kb.LAUNCHES["mega_bwd"] == 1
     _check_bwd(got, mega_bwd_plain(*args))
+    carry = got[4]
+    for a, b in zip([*carry[0], *carry[1], *carry[2], carry[3]], [*out[8], *out[1], *out[2], out[3]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_mega_bwd_one_object_on_card(dev):
+    """The worst case for the kernel's warp-aggregated table sums: a mirror
+    platform alone under a camera that looks down on it, so every lane
+    hits object 0 at bounce 0 (and the reflected rays escape), at 512^2 x
+    depth 8.  Checked as the demo scene is, the carry bitwise."""
+    b = SceneBuilder()
+    b.add_platform(0.0, mat_type=MaterialType.MIRROR, kd=(0.7, 0.6, 0.5), emission=0.3,
+                   smoothness=1.5, reflectivity=0.5)
+    gs = group_scene(b.build(device=dev))
+    args, out = _bwd_inputs(dev, gs, 512, 8, origin=(0.0, 100.0, 1.0))
+    assert bool((args[7][0] == 0).all())
+    got = mega_bwd(*args, with_carry=True)
+    _check_bwd(got, mega_bwd_plain(*args))
+    assert float(got[0].abs().sum()) > 0 and float(got[1].abs().sum()) > 0
     carry = got[4]
     for a, b in zip([*carry[0], *carry[1], *carry[2], carry[3]], [*out[8], *out[1], *out[2], out[3]]):
         assert torch.equal(a, b)
@@ -293,26 +317,96 @@ def _primaries(dev, n, width):
     return flat(o), flat(d), torch.zeros(r, device=dev), torch.full((r,), INF, device=dev)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("leaf_size", [None, 8], ids=["auto", "leaf8"])
-def test_bvh_winner_index_matches_plain_on_card(dev, leaf_size):
-    """The BVH walk kernel equals its plain version bitwise on 2^16
-    primaries of big_scene(4096), with the automatic leaf size (K = 32) and
-    with K = 8 (about 1,000 nodes)."""
-    from cpppathtracer_tpu_torch.models.presets import big_scene
-    from cpppathtracer_tpu_torch.ops.cuda.bvh_kernel import bvh_winner_index, bvh_winner_index_plain
+def _bvh_rays(dev, scene, which, monkeypatch):
+    """256^2 rays of big_camera(4096): the primaries, or the rays of
+    bounce 1 as trace_bounces hands them to the walk (tmin 2e-5)."""
+    from cpppathtracer_tpu_torch.integrator import render_radiance
+    from cpppathtracer_tpu_torch.models.presets import big_camera
+    from cpppathtracer_tpu_torch.ops.texture import procedural_sky
 
-    scene = big_scene(4096, bvh=False, device=dev).with_bvh(leaf_size)
-    ray = _primaries(dev, 4096, 256)
-    tables = (scene.bvh_meta, scene.bvh_aabb, scene.bvh_objs)
-    k = scene.bvh_dims[1]
+    if which == "primaries":
+        return _primaries(dev, 4096, 256)
+    calls = []
+    real = fast.bvh_winner_index
+
+    def recording(o, d, tmin, tmax, *tables, **kw):
+        calls.append((tuple(c.clone() for c in o), tuple(c.clone() for c in d), tmin.clone(),
+                      tmax.clone()))
+        return real(o, d, tmin, tmax, *tables, **kw)
+
+    monkeypatch.setattr(fast, "bvh_winner_index", recording)
+    sky = torch.from_numpy(procedural_sky(64, 64)).to(dev)
+    with torch.no_grad():
+        render_radiance(scene, big_camera(4096, 256, 256, device=dev), sky, spp=1, max_depth=2)
+    monkeypatch.undo()
+    return calls[1]
+
+
+def _nodes_in_smem(scene):
+    """Whether the walk kernel stages this scene's nodes in shared memory."""
+    import ctypes
+
+    info = (ctypes.c_int * 4)()
+    m, k = scene.bvh_dims
+    assert kb.library().poca_bvh_info(m, scene.bvh_objs.shape[0] // k, ctypes.addressof(info)) == 0
+    return bool(info[3])
+
+
+def _check_walk(ray, tables, k, hits_min=0.25):
+    """The walk kernel against its plain version: one launch, bitwise equal
+    indices; returns them."""
     kb.reset_launches()
-    got = bvh_winner_index(*ray, *tables, leaf_size=k)
+    got = bvh_kernel.bvh_winner_index(*ray, *tables, leaf_size=k)
     torch.cuda.synchronize()
     assert kb.LAUNCHES["bvh_winner_index"] == 1
-    ref = bvh_winner_index_plain(*ray, *tables, leaf_size=k)
-    assert torch.equal(got, ref)
-    assert float((got > 0).float().mean()) > 0.25
+    assert torch.equal(got, bvh_kernel.bvh_winner_index_plain(*ray, *tables, leaf_size=k))
+    assert float((got > 0).float().mean()) > hits_min
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rays", ["primaries", "bounce1"])
+@pytest.mark.parametrize("leaf_size", [None, 8], ids=["auto", "leaf8"])
+def test_bvh_winner_index_matches_plain_on_card(dev, monkeypatch, leaf_size, rays):
+    """The BVH walk kernel equals its plain version bitwise on 2^16
+    primaries of big_scene(4096) and on its bounce-1 rays, with the
+    automatic leaf size (K = 32) and with K = 8 (about 1,000 nodes)."""
+    from cpppathtracer_tpu_torch.models.presets import big_scene
+
+    scene = big_scene(4096, bvh=False, device=dev).with_bvh(leaf_size)
+    assert _nodes_in_smem(scene)
+    ray = _bvh_rays(dev, scene, rays, monkeypatch)
+    _check_walk(ray, (scene.bvh_meta, scene.bvh_aabb, scene.bvh_objs), scene.bvh_dims[1],
+                hits_min=0.25 if rays == "primaries" else 0.05)
+
+
+@pytest.mark.gpu
+def test_bvh_winner_index_past_node_budget_on_card(dev):
+    """big_scene(16384) with K = 8 has 4,095 nodes and 2,048 leaves, 160 KB
+    of them, past the kernel's shared-memory budget: the nodes are read
+    through the cache, and the walk still equals its plain version."""
+    from cpppathtracer_tpu_torch.models.presets import big_camera, big_scene
+
+    scene = big_scene(16384, bvh=False, device=dev).with_bvh(8)
+    m, k = scene.bvh_dims
+    assert not _nodes_in_smem(scene)
+    cam = big_camera(16384, 256, 256, device=dev)
+    r = 256 * 256
+    pix = torch.arange(r, dtype=torch.int32, device=dev)
+    o, d = cam.ray_gen_planar(pix, torch.zeros_like(pix), 0)
+    ray = (tuple(c.contiguous() for c in o), tuple(c.contiguous() for c in d),
+           torch.zeros(r, device=dev), torch.full((r,), INF, device=dev))
+    _check_walk(ray, (scene.bvh_meta, scene.bvh_aabb, scene.bvh_objs), k)
+
+
+@pytest.mark.gpu
+def test_bvh_winner_index_exact_ties_on_card(dev):
+    """Exact t ties within a leaf and across leaves (tests/torch_scenes.py's
+    column of overlapping cylinders and stacks of sphere copies): the
+    kernel keeps the plain version's winner."""
+    scene = tie_scene(dev)
+    _check_walk(tie_rays(1 << 16, dev), (scene.bvh_meta, scene.bvh_aabb, scene.bvh_objs),
+                scene.bvh_dims[1])
 
 
 @pytest.mark.gpu
