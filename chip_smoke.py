@@ -11,10 +11,15 @@ its gradients against the plain backward's, three steps of
 ``inverse.fit``) and the BVH path (``big_scene(16384)`` through the
 per-bounce wavefront path at 1024^2 x 16 spp x depth 8, then 16
 progressive 1280x720 frames; the dense winner launch on the same path
-with POCA_BVH=0 POCA_MEGA=0) through the kernels, times each kernel
-beside its bound, its plain version and a PyTorch library yardstick (the
-walk also per bounce; the walk and the backward with their registers and
-resident blocks per SM), and prints:
+with POCA_BVH=0 POCA_MEGA=0), textured albedo (the megakernel's with_aux
+form bitwise against its plain version unsplit, in phase A and in phase
+B, the textured demo render at 1024^2 x d8 and its training step) and
+training through the wavefront path (a 1024^2 x 4 spp x d8 step on
+big_scene(16384) with no walk in its backward; the demo scene's
+gradients under POCA_MEGA=0 against the megakernel path's) through the
+kernels, times each kernel beside its bound, its plain version and a
+PyTorch library yardstick (the walk also per bounce; the walk and the
+backward with their registers and resident blocks per SM), and prints:
   - the card's name and power limit (nvidia-smi);
   - one JSON line {"kernels": [...]};
   - as the last line, {"ok": true, "device": {...}}.
@@ -66,6 +71,8 @@ SUB = 1 << 16  # lanes of the kernel-vs-plain checks of the BVH phase
 EDGE_TOL = 0.25
 PROG_W, PROG_H = 1280, 720
 FORWARD_KERNELS = ("mega_trace", "stream_compact", "stream_expand")
+TEX_SPP = 4  # samples of the textured render; its training step takes 2
+WF_SPP = 4  # samples of the BVH training step
 CAMERA = dict(origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0))
 
 
@@ -362,10 +369,187 @@ def hit_float64(gs, ray, idx):
     return t, torch.nan_to_num(edge, nan=INF)
 
 
+def loss_grads(scene, camera, sky, spp, depth, tex=None):
+    """bench.py's loss, sum(rad^2), and its gradients w.r.t. kd and
+    emission (and the texture stack `tex` when given)."""
+    from cpppathtracer_tpu_torch.integrator import render_radiance
+
+    kd = scene.kd.clone().requires_grad_()
+    em = scene.emission.clone().requires_grad_()
+    leaves = [kd, em] + ([] if tex is None else [tex.clone().requires_grad_()])
+    s = scene.with_material_params({"kd": kd, "emission": em})
+    rad, _, _ = render_radiance(s, camera, sky, spp=spp, max_depth=depth, seed=0,
+                                tex_stack=None if tex is None else leaves[2])
+    loss = (rad * rad).sum()
+    return (loss.detach(), *torch.autograd.grad(loss, leaves))
+
+
+def trace_planes(out):
+    """Every plane a trace returns: the 14 float outputs, the hit planes,
+    the aux planes (with_aux) and the final origin (with_o)."""
+    planes = [*out[0], *out[1], *out[2], out[3], *out[4], out[5], *out[6]]
+    planes += [c for pos, att in out[7] or () for c in (*pos, att)]
+    return planes + (list(out[8]) if len(out) > 8 else [])
+
+
+def same_bits(a, b):
+    return len(a) == len(b) and all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+
+def textured_scene(scene, dev):
+    """demo_scene(0) with texture 0 on the platform, 1 on the cylinders and
+    none on the spheres; a stack of two 256^2 textures made with numpy from
+    fixed seeds (a checker and procedural_sky(256, 256, seed=1))."""
+    import dataclasses
+
+    from cpppathtracer_tpu_torch.ops.texture import procedural_sky
+    from cpppathtracer_tpu_torch.types import PrimitiveType
+
+    tid = torch.where(scene.prim_type == PrimitiveType.PLATFORM, 0,
+                      torch.where(scene.prim_type == PrimitiveType.CYLINDER, 1, -1)).to(torch.int32)
+    cells = (np.arange(256)[:, None] // 32 + np.arange(256)[None, :] // 32) % 2
+    checker = np.where(cells[..., None] == 1, np.float32([0.9, 0.8, 0.3]),
+                       np.float32([0.2, 0.3, 0.7])).astype(np.float32)
+    tex = np.stack([checker, procedural_sky(256, 256, seed=1)])
+    return dataclasses.replace(scene, tex_id=tid), torch.from_numpy(tex).to(dev)
+
+
+def textured_phase(dev, scene, camera, sky, trace_args, gs, k1, time_kernels):
+    """Textured albedo on the megakernel path: the with_aux form bitwise
+    against its plain version (unsplit on 2^16 primaries, phase A, phase B
+    with a poisoned tail) and through the split sample; the textured
+    render, the unused-texture check, a profile and the training step.
+    Returns the kernel row of the with_aux form (`time_kernels` times it at
+    the main path's shapes)."""
+    from cpppathtracer_tpu_torch.integrator import render_radiance
+    from cpppathtracer_tpu_torch.ops import mega as mega_mod
+    from cpppathtracer_tpu_torch.ops.cuda import build as kb
+    from cpppathtracer_tpu_torch.ops.cuda.compact_kernel import stream_compact
+    from cpppathtracer_tpu_torch.ops.cuda.mega_kernel import mega_trace, mega_trace_plain
+
+    r = W * H
+    counts = gs.counts
+    o, d, pix, samp, seed, geom, ts, trt = trace_args
+
+    # 1. the kernel against its plain version, every plane bitwise
+    head = lambda v: tuple(c[:SUB].contiguous() for c in v)
+    sub_args = (head(o), head(d), pix[:SUB].contiguous(), samp[:SUB].contiguous(), seed, geom, ts,
+                trt)
+    got = mega_trace(*sub_args, counts=counts, depth=DEPTH, with_aux=True)
+    ref = mega_trace_plain(*sub_args, counts=counts, depth=DEPTH, with_aux=True)
+    if not same_bits(trace_planes(got), trace_planes(ref)):
+        raise AssertionError("mega_trace(with_aux) differs from its plain version (unsplit)")
+    a_kw = dict(counts=counts, depth=2, with_o=True, with_aux=True)
+    out_a = mega_trace(*trace_args, **a_kw)
+    if not same_bits(trace_planes(out_a), trace_planes(mega_trace_plain(*trace_args, **a_kw))):
+        raise AssertionError("mega_trace(with_aux) differs from its plain version (phase A)")
+    missed_a = out_a[3]
+    payload = [pix, samp, *out_a[8], *out_a[1], *out_a[2], missed_a]
+    packed, offs, n_alive = stream_compact(missed_a, payload)
+    n = int(n_alive[0])
+
+    def phase_b(planes):
+        args = (tuple(planes[2:5]), tuple(planes[5:8]), planes[0], planes[1], seed, geom, ts, trt)
+        kw = dict(counts=counts, depth=DEPTH - 2, start_bounce=2, thru=tuple(planes[8:11]),
+                  n_alive=n_alive, alive_mask=planes[11], with_aux=True)
+        return args, kw
+
+    b_args, b_kw = phase_b(packed)
+    out_b = mega_trace(*b_args, **b_kw)
+    same_b = same_bits(trace_planes(out_b), trace_planes(mega_trace_plain(*b_args, **b_kw)))
+    p_args, p_kw = phase_b(poison_tail(packed, n))
+    same_p = same_bits(trace_planes(mega_trace(*p_args, **p_kw)), trace_planes(out_b))
+    # the split sample's aux planes, expanded back to their pixels, against the unsplit
+    # plain trace's on every lane whose hit plane is >= 0 (others read no aux plane)
+    merged = mega_mod._trace(o, d, pix, samp, seed, DEPTH, geom, ts, trt, counts, with_aux=True)
+    unsplit = mega_trace_plain(*trace_args, counts=counts, depth=DEPTH, with_aux=True)
+    aux_u = [c for pos, att in unsplit[7] for c in (*pos, att)]
+    hits_equal = all(torch.equal(a, b) for a, b in zip(merged[6], unsplit[6]))
+    aux_equal = all(torch.equal(bits(merged[7][k])[unsplit[6][k // 4] >= 0],
+                                bits(aux_u[k])[unsplit[6][k // 4] >= 0]) for k in range(4 * DEPTH))
+    log(f"[check] mega_trace(with_aux) bitwise equal to plain, all {4 * DEPTH} aux planes "
+        f"included: unsplit on {SUB} primaries True, phase A True, phase B {same_b}, phase B with "
+        f"the packed tail [{n}, {r}) poisoned {same_p}; the split sample's hit planes equal to the "
+        f"unsplit plain trace's {hits_equal}, its expanded aux planes on every hit lane {aux_equal}")
+    if not (same_b and same_p and hits_equal and aux_equal):
+        raise AssertionError("mega_trace(with_aux) differs from its plain version or the split")
+
+    # 2. the textured render
+    tex_scene, tex = textured_scene(scene, dev)
+    render = lambda s, spp: render_radiance(s, camera, sky, spp=spp, max_depth=DEPTH, seed=0,
+                                            tex_stack=tex)
+    with torch.no_grad():
+        render(tex_scene, 1)  # warm-up
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        t0 = time.perf_counter()
+        rad = render(tex_scene, TEX_SPP)[0]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(kb.LAUNCHES)
+        want = dict(kb.LAUNCHES, mega_trace=0, mega_trace_aux=2 * TEX_SPP, stream_compact=TEX_SPP,
+                    stream_expand=2 * TEX_SPP, mega_bwd=0, winner_index=0, bvh_winner_index=0)
+        if launches != want:
+            raise AssertionError(f"the textured render launched {launches}, expected {want}")
+        if not (torch.isfinite(rad).all() and rad.shape == (r, 3)):
+            raise AssertionError("the textured render is not finite or has the wrong shape")
+        # every tex_id -1, the stack passed: the untextured render's radiance, but for the
+        # order of the float32 sum (the split kernel adds phase A's and phase B's radiance,
+        # the epilogue bounce by bounce); every term is >= 0, so within 1e-6 relative
+        import dataclasses
+
+        untex = render(dataclasses.replace(scene, tex_id=torch.full_like(scene.tex_id, -1)), 1)[0]
+        rel = float(((untex - k1[0]).abs() / k1[0].abs().clamp(min=1e-30)).max())
+        ok_rel = bool(((untex - k1[0]).abs() <= 1e-6 * k1[0].abs()).all())
+    log(f"[texture render] demo_scene(0) textured, 1024^2 x {TEX_SPP} spp x d{DEPTH}: "
+        f"{dt * 1e3:.1f} ms, {dt * 1e3 / TEX_SPP:.3f} ms/sample, launches {launches}, mean radiance "
+        f"{float(rad.mean()):.5f} (untextured 1 spp {float(k1[0].mean()):.5f}); every tex_id -1 "
+        f"with the stack: max relative difference to the untextured render {rel:.3e}, max |diff| "
+        f"{float((untex - k1[0]).abs().max()):.3e}")
+    if not ok_rel:
+        raise AssertionError("the unused texture stack changed the radiance beyond 1e-6 relative")
+    with torch.no_grad():
+        profile_device(lambda: render(tex_scene, 4), "textured render, 4 samples")
+
+    # 3. the textured training step: bench.py's loss, gradients for kd, emission and the
+    # textures; its backward is torch autograd of the replay (ops/mega.py)
+    tex_step = lambda spp: loss_grads(tex_scene, camera, sky, spp, DEPTH, tex)
+    tex_step(1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    loss, g_kd, g_em, g_tex = tex_step(2)
+    torch.cuda.synchronize()
+    dt_t = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if kb.LAUNCHES["mega_trace_aux"] != 4 or kb.LAUNCHES["mega_bwd"]:
+        raise AssertionError(f"the textured step launched {dict(kb.LAUNCHES)}")
+    if not all(torch.isfinite(g).all() for g in (g_kd, g_em, g_tex)) or not bool((g_tex != 0).any()):
+        raise AssertionError("the textured gradients are non-finite or the texture's is zero")
+    log(f"[texture train] fwd+bwd 1024^2 x 2 spp x d{DEPTH}: {dt_t * 1e3:.1f} ms/step, peak memory "
+        f"{peak_gib:.2f} GiB, launches {dict(kb.LAUNCHES)}, loss {float(loss):.6g}, |g_kd| "
+        f"{float(g_kd.norm()):.6g}, |g_emission| {float(g_em.norm()):.6g}, |g_tex| "
+        f"{float(g_tex.norm()):.6g} ({int((g_tex != 0).sum())} nonzero entries)")
+
+    # 4. the with_aux form's time per sample (phase A + B) at these shapes
+    ms, plain_ms, bound_ms, bound_by = time_kernels(
+        lambda: (mega_trace(*trace_args, **a_kw), mega_trace(*b_args, **b_kw)),
+        lambda: (mega_trace_plain(*trace_args, **a_kw), mega_trace_plain(*b_args, **b_kw)),
+        16 * r * DEPTH)
+    return [dict(name="mega_trace (with_aux)", route="cuda",
+                 source="cpppathtracer_tpu_torch/csrc/mega_trace.cu",
+                 replaces="cpppathtracer_tpu/ops/pallas/mega_kernel.py:290",
+                 launches=launches["mega_trace_aux"], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)]
+
+
 def bvh_phase(dev, sky):
     """The BVH path: the walk and the dense launch against their plain
     versions, BVH vs dense renders, the big_scene(16384) render and
-    progressive loop, a profile, and the two kernels' rows."""
+    progressive loop, a profile, the training step through the wavefront
+    path (and the dense wavefront gradients against the megakernel's),
+    and the two kernels' rows."""
     from cpppathtracer_tpu_torch.integrator import render_radiance
     from cpppathtracer_tpu_torch.models.presets import big_camera, big_scene
     from cpppathtracer_tpu_torch.ops.cuda import build as kb
@@ -540,7 +724,61 @@ def bvh_phase(dev, sky):
         profile_device(lambda: render_radiance(scene, camera, sky, spp=2, max_depth=DEPTH, seed=0),
                        f"big_scene({BVH_N}), 2 samples")
 
-    # 8. kernel rows.  The walk per sample: the 8 per-bounce launches of sample 0 on its
+    # 8. training through the wavefront path: bench.py's loss on big_scene(16384); the
+    # backward replays each sample's saved winners, so the walk runs only in the forward
+    loss_grads(scene, camera, sky, 1, DEPTH)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    loss, g_kd, g_em = loss_grads(scene, camera, sky, WF_SPP, DEPTH)
+    torch.cuda.synchronize()
+    dt_t = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    step_launches = dict(kb.LAUNCHES)
+    want = dict(kb.LAUNCHES, bvh_winner_index=WF_SPP * DEPTH, mega_trace=0, mega_trace_aux=0,
+                mega_bwd=0, winner_index=0, stream_compact=0, stream_expand=0)
+    if step_launches != want:
+        raise AssertionError(f"the BVH training step launched {step_launches}, expected {want}")
+    for name, g in (("kd", g_kd), ("emission", g_em)):
+        if not torch.isfinite(g).all() or not bool((g != 0).any()):
+            raise AssertionError(f"the BVH step's {name} gradient is non-finite or all zero")
+    log(f"[bvh train] fwd+bwd big_scene({BVH_N}) 1024^2 x {WF_SPP} spp x d{DEPTH}: "
+        f"{dt_t * 1e3:.1f} ms/step, {r * WF_SPP * DEPTH / dt_t / 1e6:.1f} Mrays/s fwd+bwd, peak "
+        f"memory {peak_gib:.2f} GiB, launches {step_launches} (the walk {WF_SPP} x {DEPTH}, none "
+        f"in the backward), loss {float(loss):.6g}, |g_kd| {float(g_kd.norm()):.6g}, "
+        f"|g_emission| {float(g_em.norm()):.6g}")
+    profile_device(lambda: loss_grads(scene, camera, sky, 1, DEPTH), "BVH training step, 1 spp")
+
+    # the dense wavefront path's gradients (POCA_MEGA=0, csrc/winner.cu) against the
+    # megakernel path's (csrc/mega_bwd.cu) on the demo scene, 256^2 x 2 spp x d4
+    from cpppathtracer_tpu_torch.models.camera import Camera
+    from cpppathtracer_tpu_torch.models.scene import demo_scene
+
+    demo = demo_scene(0).build(device=dev)
+    cam256 = Camera.make(256, 256, device=dev, **CAMERA)
+    g_mega = loss_grads(demo, cam256, sky, 2, 4)
+    with env(POCA_MEGA="0"):
+        kb.reset_launches()
+        g_wave = loss_grads(demo, cam256, sky, 2, 4)
+        torch.cuda.synchronize()
+        dense_step = dict(kb.LAUNCHES)
+    if dense_step["winner_index"] != 2 * 4 or dense_step["mega_trace"] or dense_step["mega_bwd"]:
+        raise AssertionError(f"the POCA_MEGA=0 step launched {dense_step}")
+    # Both paths trace the same rays with the same arithmetic; only the order of the
+    # gradient sums differs (cosine 1.00000000, norm ratios within 3e-7 of 1 on the
+    # H100), so the bound (1e-5, 1e-4) sits well above those readings and far inside
+    # the JAX test's 0.999 / 3%.
+    agree = []
+    for name, a, b in (("kd", g_mega[1], g_wave[1]), ("emission", g_mega[2], g_wave[2])):
+        cos, ratio = cosine_and_ratio(b, a)
+        agree.append(cos > 0.99999 and abs(ratio - 1) < 1e-4)
+        log(f"[bvh train] POCA_MEGA=0 vs the megakernel path, demo_scene(0) 256^2 x 2 spp x d4, "
+            f"{name} gradient: cosine {cos:.8f}, norm ratio {ratio:.8f} (launches {dense_step})")
+    if not all(agree):
+        raise AssertionError("the wavefront gradients disagree with the megakernel path's")
+
+    # 9. kernel rows.  The walk per sample: the 8 per-bounce launches of sample 0 on its
     # recorded rays; the dense launch on the 1024^2 primaries of big_scene(4096).
     ops_slab, ops_row = bvh_ops()
     layout = gs.bvh_layout  # the scene's, as on the main path
@@ -815,8 +1053,8 @@ def main():
     dt_t = time.perf_counter() - t0
     train_launches = dict(kb.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    want = dict(mega_trace=2 * SPP, stream_compact=SPP, stream_expand=SPP, mega_bwd=SPP,
-                winner_index=0, bvh_winner_index=0)
+    want = dict(mega_trace=2 * SPP, mega_trace_aux=0, stream_compact=SPP, stream_expand=SPP,
+                mega_bwd=SPP, winner_index=0, bvh_winner_index=0)
     if train_launches != want:
         raise AssertionError(f"training step launches {train_launches}, expected {want}")
     for name, g in (("kd", g_kd), ("emission", g_em)):
@@ -869,10 +1107,20 @@ def main():
     # 14 + 6 (hits) for every lane
     bytes_mega = 4 * (r * (8 + 19) + n * 12 + r * (14 + DEPTH - 2))
     bound_mega = max(ops * (work_a + work_b) / FP32_OPS_PER_S, bytes_mega / HBM_BYTES_PER_S)
+
+    def time_mega(kernel, plain, extra_bytes):
+        """A sample's phase A + B through the kernel and the plain version:
+        (ms, plain ms, bound ms, what bounds it), the bound with `extra_bytes`
+        more written than the untextured form."""
+        ops_s = ops * (work_a + work_b) / FP32_OPS_PER_S
+        bytes_s = (bytes_mega + extra_bytes) / HBM_BYTES_PER_S
+        return (time_ms(kernel, iters=5), time_ms(plain, iters=2, warmup=1),
+                max(ops_s, bytes_s) * 1e3, "operations" if ops_s > bytes_s else "bytes")
+
     a_kw = dict(counts=gs.counts, depth=2, with_o=True)
-    ms_mega = time_ms(lambda: (mega_trace(*trace_args, **a_kw), mega_trace(*b_args, **b_kw)), iters=5)
-    plain_mega = time_ms(lambda: (mega_trace_plain(*trace_args, **a_kw), mega_trace_plain(*b_args, **b_kw)),
-                         iters=2, warmup=1)
+    ms_mega, plain_mega, _, _ = time_mega(
+        lambda: (mega_trace(*trace_args, **a_kw), mega_trace(*b_args, **b_kw)),
+        lambda: (mega_trace_plain(*trace_args, **a_kw), mega_trace_plain(*b_args, **b_kw)), 0)
     # the compaction: the miss plane and the alive lanes' payload words read, the packed
     # words, offs and n_alive written (beside it two larger counts: every payload word read;
     # every lane of every payload and packed plane moved, 4 R (2 + 2 P))
@@ -959,7 +1207,9 @@ def main():
         f"{ops_s * 1e3:.4f} ms; its {bytes_bwd / 1e6:.1f} MB {bytes_s * 1e3:.4f} ms); "
         f"plain {plain_bwd_ms:.1f} ms; {regs_bwd} registers, {local_bwd} local bytes a thread, "
         f"{per_sm_bwd} resident blocks of 128 threads per SM")
-    # ---- phase 7: BVH scenes through the per-bounce wavefront path
+    # ---- phase 7: textured albedo on the megakernel path
+    kernels += textured_phase(dev, scene, camera, sky, trace_args, gs, k1, time_mega)
+    # ---- phase 8: BVH scenes through the per-bounce wavefront path, and its training step
     kernels += bvh_phase(dev, sky)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

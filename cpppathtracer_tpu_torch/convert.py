@@ -65,3 +65,12 @@ def sky_from_numpy(sky, device=None) -> torch.Tensor:
     if sky.ndim != 3 or sky.shape[-1] != 3:
         raise ValueError(f"sky must be [H, W, 3], got {sky.shape}")
     return _tensor(sky, np.float32, resolve_device(device))
+
+
+def tex_stack_from_numpy(tex, device=None) -> torch.Tensor:
+    """A stack of albedo textures f32[T,H,W,3] (an object's tex_id picks
+    one)."""
+    tex = np.asarray(tex, np.float32)
+    if tex.ndim != 4 or tex.shape[-1] != 3:
+        raise ValueError(f"tex_stack must be [T, H, W, 3], got {tex.shape}")
+    return _tensor(tex, np.float32, resolve_device(device))

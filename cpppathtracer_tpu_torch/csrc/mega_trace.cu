@@ -27,6 +27,15 @@
 // Phase B of the split trace passes n_alive (read on the device, no host
 // sync) and an alive mask: a lane at or past n_alive, or masked, publishes
 // neutral outputs (zeros, hit -1) and exits at once.
+//
+// The with_aux form (textured scenes, pallas_mega_trace(with_aux=True)):
+// per bounce b it also writes aux[4b + 0..2] = the hit position the bounce
+// body already holds and aux[4b + 3] = the attenuation-on mask (glass, or
+// dot(normal, bounce) > 0), four coalesced stores a bounce and no new
+// arithmetic; inactive lanes write zeros.  It is a second instantiation
+// (AUX = true), so the untextured kernel's code is unchanged.  The form
+// adds 16 bytes per lane and bounce to the bytes above, still well under
+// the operations' bound.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -45,11 +54,13 @@ struct MegaParams {
   float* out_f;         // [14, R]: rad3 miss_dir3 miss_thru3 missed first_n3 first_t
   float* out_o;         // [3, R] or null
   int* hits;            // [depth, R]
+  float* aux;           // [4 * depth, R] (AUX only): pos3 att per bounce
   int R, n_s, n_p, n_c, n_rep, n_pad, depth, start_bounce;
   uint32_t seed;
 };
 
 // -------------------------------------------------------------- kernel
+template <bool AUX>
 __global__ void __launch_bounds__(POCA_MEGA_BLOCK)
 mega_trace_kernel(MegaParams p) {
   extern __shared__ float smem[];
@@ -72,6 +83,8 @@ mega_trace_kernel(MegaParams p) {
     for (int k = 0; k < 14; ++k) p.out_f[k * R + i] = 0.0f;
     if (p.out_o) for (int k = 0; k < 3; ++k) p.out_o[k * R + i] = 0.0f;
     for (int b = 0; b < p.depth; ++b) p.hits[b * R + i] = -1;
+    if (AUX)
+      for (int k = 0; k < 4 * p.depth; ++k) p.aux[(size_t)k * R + i] = 0.0f;
     return;
   }
 
@@ -99,6 +112,13 @@ mega_trace_kernel(MegaParams p) {
     const float t = bf.h.t;
     const V3 pos = bf.pos;
     const V3 bounce = bf.s.bounce, atten = bf.s.atten, emitted = bf.s.emitted;
+    if (AUX) {
+      float* a = p.aux + (size_t)(4 * b) * R + i;
+      a[0] = pos.x;
+      a[R] = pos.y;
+      a[2 * (size_t)R] = pos.z;
+      a[3 * (size_t)R] = bf.s.atten_on ? 1.0f : 0.0f;
+    }
 
     const bool live_hit = hit && alive;
     const float lh = live_hit ? 1.0f : 0.0f;
@@ -134,20 +154,27 @@ extern "C" int poca_mega_trace(
     const int* pix, const int* samp,
     const float* geom, const float* ts, const float* trt,
     const int* n_alive, const float* amask,
-    float* out_f, float* out_o, int* hits,
+    float* out_f, float* out_o, int* hits, float* aux,
     int R, int n_s, int n_p, int n_c, int n_rep, int n_pad, int depth,
     int start_bounce, int seed, cudaStream_t stream) {
   if (R <= 0) return 0;
   MegaParams p = {ox, oy, oz, dx, dy, dz, tx, ty, tz, pix, samp, geom, ts, trt,
-                  n_alive, amask, out_f, out_o, hits,
+                  n_alive, amask, out_f, out_o, hits, aux,
                   R, n_s, n_p, n_c, n_rep, n_pad, depth, start_bounce, (uint32_t)seed};
   const size_t smem = sizeof(float) * (8 * (size_t)n_rep + (POCA_F_S + POCA_F_R) * (size_t)n_pad);
+  void (*kernel)(MegaParams) = aux ? mega_trace_kernel<true> : mega_trace_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        mega_trace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int grid = (R + POCA_MEGA_BLOCK - 1) / POCA_MEGA_BLOCK;
-  mega_trace_kernel<<<grid, POCA_MEGA_BLOCK, smem, stream>>>(p);
+  kernel<<<grid, POCA_MEGA_BLOCK, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The shared memory one block of `device` may opt into
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin; 232,448 bytes on the H100).
+extern "C" int poca_smem_optin(int device, int* out) {
+  return (int)cudaDeviceGetAttribute(out, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
 }

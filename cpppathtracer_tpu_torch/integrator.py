@@ -19,9 +19,18 @@ takes the megakernel (``ops/mega.py``).  POCA_MEGA=0 sends a dense scene
 through the wavefront path with the dense winner kernel
 (``csrc/winner.cu``), and POCA_BVH=0 ignores attached tables.
 
-The megakernel path is differentiable (its backward is
-``ops/mega.py::MegaSample``); the wavefront path serves only and raises
-when asked for a gradient.
+Textured albedo (`tex_stack`, f32[T, H, W, 3]; an object's tex_id picks
+its texture, -1 none): the wavefront bounce samples the texture at the
+hit's UV (``ops/uv.py``) and it replaces kd in the attenuation; the
+megakernel path takes the kernel's `with_aux` form and replays the
+radiance recurrence with the textured albedo in
+:func:`_mega_tex_radiance` (JAX `integrator.py:271-333`).
+
+Both paths are differentiable.  The megakernel's backward is
+``ops/mega.py::MegaSample``.  The wavefront path's is
+:class:`WavefrontSample`: its forward saves each bounce's winner index,
+and its backward replays the bounces from them without the winner search
+(JAX `integrator.py:194-225, 481-486`).
 """
 
 from __future__ import annotations
@@ -33,19 +42,43 @@ import torch
 from cpppathtracer_tpu_torch.ops import fast, planar, texture
 from cpppathtracer_tpu_torch.ops.mathx import div_const
 from cpppathtracer_tpu_torch.ops.mega import mega_sample
+from cpppathtracer_tpu_torch.ops.uv import surface_uv_p
 from cpppathtracer_tpu_torch.types import INF, TMIN_BOUNCE
 from cpppathtracer_tpu_torch.utils.rng import uniforms4
 
 
-def trace_bounces(gs, sky_packed, rays, pixel_idx, sample_idx, seed, max_depth: int):
-    """Integrate `max_depth` bounces of planar primary rays (`rays` = (o, d),
-    tuples of f32[R]) over the grouped scene `gs` one bounce at a time,
-    each bounce's closest hit by ``fast.intersect_and_gather_planar``; the
-    escaped paths see the packed sky `sky_packed`.  A path that missed
-    keeps its ray, which misses again, so at the end its direction and
-    throughput are the miss direction and throughput.
+def _textured_kd(tex_id, geom_p, pos, tex_stack, kd):
+    """The attenuation's albedo: texture tex_id[i] of the stack sampled at
+    the UV of pos on the object (geom_p = prim_type, center, radius, y_pos,
+    height), or kd where tex_id < 0 (`Material::GetKd`,
+    `material.cu:11-18`).  A static loop over the stack, as in the JAX
+    package."""
+    uu, vv = surface_uv_p(*geom_p, pos)
+    zero = torch.zeros_like(uu)
+    kd_tex = (zero, zero, zero)
+    for t in range(tex_stack.shape[0]):
+        smp = planar.unstack_v3(texture.sample_bilinear(tex_stack[t], uu, vv))
+        kd_tex = planar.where_p(tex_id == t, smp, kd_tex)
+    return planar.where_p(tex_id >= 0, kd_tex, kd)
 
-    Returns (radiance f32[R,3], first_normal f32[R,3], first_t f32[R])."""
+
+def trace_bounces(gs, rays, pixel_idx, sample_idx, seed, max_depth: int, *, tex_stack=None,
+                  gidx_planes=None, tables=None):
+    """Integrate `max_depth` bounces of planar primary rays (`rays` = (o, d),
+    tuples of f32[R]) over the grouped scene `gs` one bounce at a time.
+    Each bounce's winner is ``fast.closest_index`` (the BVH walk or the
+    dense search), or with `gidx_planes` the saved one; its record and hit
+    attributes come from ``planar.gather_epilogue_p`` on `tables` (default
+    gs.table_s, gs.table_r), and the hit is recomputed from them (t < INF).
+    With both `gidx_planes` and `tables`, `gs` is not read.
+    With `tex_stack` the attenuation takes the textured albedo.  A path
+    that missed keeps its ray, which misses again, so at the end its
+    direction and throughput are the miss direction and throughput.
+
+    Returns planar (rad vec3, miss_dir vec3, miss_thru vec3, missed f32[R],
+    first_n vec3, first_t f32[R], winner index planes, hit planes (bool));
+    the sky epilogue is the caller's (:func:`sky_epilogue`)."""
+    table_s, table_r = (gs.table_s, gs.table_r) if tables is None else tables
     o, d = rays
     zero = torch.zeros_like(o[0])
     one = zero + 1.0
@@ -55,12 +88,22 @@ def trace_bounces(gs, sky_packed, rays, pixel_idx, sample_idx, seed, max_depth: 
     first_t = zero
     alive = zero < 1.0
     tmax = zero + INF
+    gidxs, hits = [], []
     for b in range(max_depth):
         tmin = zero + (0.0 if b == 0 else TMIN_BOUNCE)
-        hit, mats = fast.intersect_and_gather_planar(gs, o, d, tmin, tmax)
+        gidx = fast.closest_index(gs, o, d, tmin, tmax) if gidx_planes is None else gidx_planes[b]
+        hit, mats = planar.gather_epilogue_p(table_s, table_r, o, d, tmin, tmax, gidx)
+        gidxs.append(gidx)
+        hits.append(hit["hit"])
         u1, u2, u3, _ = uniforms4(seed, pixel_idx, sample_idx, 1 + b)
+        kd_override = None
+        if tex_stack is not None:
+            kd_override = _textured_kd(mats["tex_id"], mats["_geom_p"], hit["pos"], tex_stack,
+                                       mats["kd_p"])
+        # the score-function weight is 1.0 in value: only a graph needs it
         bounce_dir, attenuation, emitted = planar.shade_p(
-            mats, hit["normal"], d, u1, u2, u3, score_grad=False
+            mats, hit["normal"], d, u1, u2, u3, kd_override=kd_override,
+            score_grad=torch.is_grad_enabled(),
         )
         live_hit = hit["hit"] & alive
         lh = live_hit.to(torch.float32)
@@ -73,17 +116,136 @@ def trace_bounces(gs, sky_packed, rays, pixel_idx, sample_idx, seed, max_depth: 
         o = planar.where_p(hit["hit"], hit["pos"], o)
         d = planar.where_p(hit["hit"], planar.normalize_p(bounce_dir), d)
     missed = (~alive).to(torch.float32)
-    sky = texture.sample_sky_packed(sky_packed, planar.stack_v3(d))
-    radiance = planar.stack_v3(rad) + planar.stack_v3(thru) * sky * missed[..., None]
-    return radiance, planar.stack_v3(first_n), first_t
+    return rad, d, thru, missed, first_n, first_t, gidxs, hits
 
 
-def _wants_grad(scene, camera, sky_tex) -> bool:
-    if not torch.is_grad_enabled():
-        return False
-    fields = [v for v in vars(scene).values() if isinstance(v, torch.Tensor)]
-    fields += [v for v in vars(camera).values() if isinstance(v, torch.Tensor)]
-    return any(t.requires_grad for t in fields + [sky_tex])
+class WavefrontSample(torch.autograd.Function):
+    """One wavefront sample as a differentiable function of the primary
+    rays (o, d), the record tables gs.table_s and gs.table_r and the
+    texture stack.
+
+    Outputs: rad vec3, miss_dir vec3, miss_thru vec3, missed, first_n
+    vec3, first_t (14 f32[R]); missed carries no gradient.  The forward
+    runs :func:`trace_bounces` and keeps only the inputs and each bounce's
+    winner index (i32[depth, R]).  The backward runs it again with those
+    indices under autograd, so neither the BVH walk nor the dense search
+    runs twice; its records are gathered from float64 copies of the tables
+    (the values unchanged), so that the table cotangents sum over the
+    lanes in float64, as the megakernel's replay does.
+    """
+
+    @staticmethod
+    def forward(ctx, ox, oy, oz, dx, dy, dz, table_s, table_r, tex_stack, gs, pix, samp, seed,
+                depth):
+        rad, md, mt, missed, first_n, first_t, gidxs, _ = trace_bounces(
+            gs, ((ox, oy, oz), (dx, dy, dz)), pix, samp, seed, depth, tex_stack=tex_stack,
+            tables=(table_s, table_r),
+        )
+        ctx.mark_non_differentiable(missed)
+        ctx.save_for_backward(ox, oy, oz, dx, dy, dz, table_s, table_r, tex_stack, pix, samp,
+                              torch.stack(gidxs))
+        ctx.seed, ctx.depth = seed, depth
+        return (*rad, *md, *mt, missed, *first_n, first_t)
+
+    @staticmethod
+    def backward(ctx, *ct):
+        *inputs, pix, samp, gidx = ctx.saved_tensors
+        xs = [None if t is None else t.detach().requires_grad_(need)
+              for t, need in zip(inputs, ctx.needs_input_grad)]
+        wrt = [x for x in xs if x is not None and x.requires_grad]
+        grads = [None] * len(xs)
+        with torch.enable_grad():
+            rad, md, mt, _, first_n, first_t, _, _ = trace_bounces(
+                None, (tuple(xs[0:3]), tuple(xs[3:6])), pix, samp, ctx.seed, ctx.depth,
+                tex_stack=xs[8], gidx_planes=gidx.unbind(0),
+                tables=(xs[6].double(), xs[7].double()),
+            )
+            outs = [*rad, *md, *mt, *first_n, first_t]
+            pairs = [(y, c) for y, c in zip(outs, ct[:9] + ct[10:]) if y.requires_grad]
+            if pairs:
+                got = iter(torch.autograd.grad([y for y, _ in pairs], wrt,
+                                               [c for _, c in pairs], allow_unused=True))
+                grads = [next(got) if x is not None and x.requires_grad else None for x in xs]
+        return (*grads, None, None, None, None, None)
+
+
+def wavefront_sample(gs, camera, pixel_idx, sample_idx, seed, depth, tex_stack=None):
+    """One sample of the wavefront path for flat pixel indices i32[R] at
+    sample `sample_idx` (int or i32[R]): planar (rad vec3, miss_dir vec3,
+    miss_thru vec3, missed f32[R], first_n vec3, first_t f32[R]), as
+    ``ops/mega.py::mega_sample`` returns them.  Ray generation and the
+    sky epilogue stay outside :class:`WavefrontSample`, so their gradients
+    are autograd's.  When nothing requires grad (the serving path) the
+    bounces run directly, with no Function and no saved winner planes."""
+    r = pixel_idx.shape[0]
+    dev = pixel_idx.device
+    pix = pixel_idx.to(torch.int32)
+    samp = torch.as_tensor(sample_idx, dtype=torch.int32, device=dev).expand(r)
+    o, d = camera.ray_gen_planar(pix, samp, seed)
+    inputs = (*o, *d, gs.table_s, gs.table_r, tex_stack)
+    if not (torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs)):
+        with torch.no_grad():
+            rad, md, mt, missed, first_n, first_t, _, _ = trace_bounces(
+                gs, (o, d), pix, samp, seed, depth, tex_stack=tex_stack)
+        return rad, md, mt, missed, first_n, first_t
+    out = WavefrontSample.apply(*inputs, gs, pix, samp, seed, depth)
+    return out[0:3], out[3:6], out[6:9], out[9], out[10:13], out[13]
+
+
+def sky_epilogue(sky_packed, rad_p, miss_p, thru_p, missed):
+    """Radiance f32[R,3]: the gathered radiance plus, on the paths that
+    escaped, the throughput times the sky at the miss direction."""
+    sky = texture.sample_sky_packed(sky_packed, planar.stack_v3(miss_p))
+    return planar.stack_v3(rad_p) + planar.stack_v3(thru_p) * sky * missed[..., None]
+
+
+def _mega_tex_radiance(gs, tex_stack, hit_planes, aux, miss_p, missed, sky_packed):
+    """The textured radiance of one megakernel sample (JAX
+    `integrator.py:271-333`).  The kernel's paths do not depend on the
+    albedo, so from its winner planes and aux (per bounce the hit position
+    and the attenuation-on mask) the recurrence
+        rad += thru * (emission_b * kd_b);  thru *= A_b
+    is replayed with A_b = the textured albedo (kd where tex_id < 0) times
+    the mask; the emission reads the raw kd (`material.cu:36`).  Under
+    autograd the records are gathered from float64 copies of the tables,
+    values unchanged, so that their cotangents sum in float64."""
+    table_s, table_r = gs.table_s, gs.table_r
+    if torch.is_grad_enabled():
+        table_s, table_r = table_s.double(), table_r.double()
+    zero = missed * 0.0
+    one = zero + 1.0
+    thru = (one, one, one)
+    rad = (zero, zero, zero)
+    alive = zero < 1.0
+    for enc, (pos, att) in zip(hit_planes, aux):
+        hit = enc >= 0
+        idx = torch.clamp(enc, min=0).long()
+        rec = table_s.index_select(0, idx).T.to(torch.float32)
+        rec_r = table_r.index_select(0, idx).T.to(torch.float32)
+        kd_b = (rec_r[0], rec_r[1], rec_r[2])
+        geom_p = (rec[6].to(torch.int32), (rec[0], rec[1], rec[2]), rec[3], rec[4], rec[5])
+        kd_att = _textured_kd(rec[11].to(torch.int32), geom_p, pos, tex_stack, kd_b)
+        attn = planar.scale_p(kd_att, att)
+        live = hit & alive
+        lh = live.to(torch.float32)
+        rad = planar.add_p(rad, planar.scale_p(planar.mul_p(thru, planar.scale_p(kd_b, rec_r[3])),
+                                               lh))
+        thru = planar.where_p(live, planar.mul_p(thru, attn), thru)
+        alive = alive & hit
+    return sky_epilogue(sky_packed, rad, miss_p, thru, missed)
+
+
+def render_sample(scene, camera, sky_tex, pixel_idx, sample_idx, seed, max_depth: int,
+                  tex_stack=None):
+    """One sample-per-pixel pass of the wavefront path over flat pixel
+    indices (JAX `integrator.py:335-343`).  Returns (radiance f32[R,3],
+    first_normal f32[R,3], first_t f32[R]); differentiable."""
+    gs = fast.group_scene(scene)
+    rad_p, miss_p, thru_p, missed, fn_p, ft = wavefront_sample(
+        gs, camera, pixel_idx, sample_idx, seed, max_depth, tex_stack
+    )
+    rad = sky_epilogue(texture.pack_bilinear(sky_tex), rad_p, miss_p, thru_p, missed)
+    return rad, planar.stack_v3(fn_p), ft
 
 
 def render_radiance(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: int = 0,
@@ -94,22 +256,29 @@ def render_radiance(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: i
     Returns (radiance f32[R,3], first_normal f32[R,3], first_t f32[R]);
     the aux buffers come from sample 0.  `spp_chunk` samples are traced as
     one [spp_chunk * R] batch with per-ray sample keys (same draws, same
-    paths; only the order of the float32 sum changes).  On the megakernel
-    path the result is differentiable w.r.t. the scene's material and
-    geometry fields, the camera and the sky whenever they require grad
-    (the backward of each sample is ``ops/mega.py::MegaSample``); the
-    wavefront path raises NotImplementedError for a gradient.  The serving
+    paths; only the order of the float32 sum changes); POCA_SPP_CHUNK, a
+    positive integer, overrides it, as in the JAX package, so that a knob
+    sweep that sets the environment (as ``scripts/perf_knobs.py`` does for
+    the JAX package) sets the port's batch the same way.  `tex_stack`
+    f32[T, H, W, 3] textures the albedo of objects whose tex_id is >= 0.
+    The result is differentiable w.r.t. the scene's material and geometry
+    fields, the camera, the sky and the texture stack whenever they
+    require grad, on both paths (the backward of each sample is
+    ``ops/mega.py::MegaSample`` or :class:`WavefrontSample`).  The serving
     path calls it under torch.no_grad().
     """
-    if tex_stack is not None:
-        raise NotImplementedError("textured albedo is not ported yet")
     dev = scene.device
-    if camera.device != dev or sky_tex.device != dev:
+    if camera.device != dev or sky_tex.device != dev or (
+            tex_stack is not None and tex_stack.device != dev):
         raise ValueError(
-            f"scene, camera and sky must share a device: {dev}, {camera.device}, {sky_tex.device}"
+            f"scene, camera, sky and textures must share a device: {dev}, {camera.device}, "
+            f"{sky_tex.device}{'' if tex_stack is None else ', ' + str(tex_stack.device)}"
         )
     if pixel_idx is None:
         pixel_idx = torch.arange(camera.width * camera.height, dtype=torch.int32, device=dev)
+    env_chunk = os.environ.get("POCA_SPP_CHUNK", "")
+    if env_chunk.isdigit() and int(env_chunk) > 0:
+        spp_chunk = int(env_chunk)
     spp_chunk = max(1, min(spp_chunk, spp))
     if spp % spp_chunk:
         spp_chunk = 1
@@ -123,11 +292,7 @@ def render_radiance(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: i
     gs = fast.group_scene(scene)
     sky_packed = texture.pack_bilinear(sky_tex)
     use_mega = not fast.use_bvh(gs) and os.environ.get("POCA_MEGA", "") != "0"
-    if not use_mega and _wants_grad(scene, camera, sky_tex):
-        raise NotImplementedError(
-            "gradients through the wavefront path (BVH scenes, POCA_MEGA=0) are not "
-            "ported yet; render under torch.no_grad()"
-        )
+    textured = tex_stack is not None
 
     acc_rad = torch.zeros((r_n, 3), dtype=torch.float32, device=dev)
     acc_n = acc_t = None
@@ -136,17 +301,18 @@ def render_radiance(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: i
         if samp_rep is not None:
             s_key = s_key + samp_rep
         if use_mega:
-            rad_p, miss_p, thru_p, missed, fn_p, ft, _ = mega_sample(
-                gs, camera, pix_c, s_key, seed, max_depth
+            rad_p, miss_p, thru_p, missed, fn_p, ft, hits, *aux = mega_sample(
+                gs, camera, pix_c, s_key, seed, max_depth, with_aux=textured
             )
-            sky = texture.sample_sky_packed(sky_packed, planar.stack_v3(miss_p))
-            rad = planar.stack_v3(rad_p) + planar.stack_v3(thru_p) * sky * missed[..., None]
-            n0 = planar.stack_v3(fn_p)
+            if textured:
+                rad = _mega_tex_radiance(gs, tex_stack, hits, aux[0], miss_p, missed, sky_packed)
         else:
-            pix = pix_c.to(torch.int32)
-            samp = torch.as_tensor(s_key, dtype=torch.int32, device=dev).expand(pix.shape[0])
-            rays = camera.ray_gen_planar(pix, samp, seed)
-            rad, n0, ft = trace_bounces(gs, sky_packed, rays, pix, samp, seed, max_depth)
+            rad_p, miss_p, thru_p, missed, fn_p, ft = wavefront_sample(
+                gs, camera, pix_c, s_key, seed, max_depth, tex_stack
+            )
+        if not (use_mega and textured):
+            rad = sky_epilogue(sky_packed, rad_p, miss_p, thru_p, missed)
+        n0 = planar.stack_v3(fn_p)
         if spp_chunk > 1:
             rad = rad.reshape(spp_chunk, r_n, 3).sum(0)
             n0, ft = n0[:r_n], ft[:r_n]

@@ -37,9 +37,10 @@ NVCC_FLAGS = [
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# launches per wrapper since the last reset_launches()
-LAUNCHES = {"mega_trace": 0, "stream_compact": 0, "stream_expand": 0, "mega_bwd": 0,
-            "winner_index": 0, "bvh_winner_index": 0}
+# launches per wrapper since the last reset_launches(); mega_trace's with_aux
+# form (a kernel instantiation of its own) counts apart
+LAUNCHES = {"mega_trace": 0, "mega_trace_aux": 0, "stream_compact": 0, "stream_expand": 0,
+            "mega_bwd": 0, "winner_index": 0, "bvh_winner_index": 0}
 
 
 def reset_launches():
@@ -116,9 +117,11 @@ _I = ctypes.c_int
 
 # argument types of each C entry point (csrc/*.cu, extern "C")
 _SIGNATURES = {
-    # o3 d3 thru3 pix samp | geom ts trt | n_alive amask | out_f out_o hits |
+    # o3 d3 thru3 pix samp | geom ts trt | n_alive amask | out_f out_o hits aux |
     # R n_s n_p n_c n_rep n_pad depth start_bounce seed | stream
-    "poca_mega_trace": [_P] * 11 + [_P] * 3 + [_P] * 2 + [_P] * 3 + [_I] * 9 + [_P],
+    "poca_mega_trace": [_P] * 11 + [_P] * 3 + [_P] * 2 + [_P] * 4 + [_I] * 9 + [_P],
+    # device | the opt-in shared memory per block
+    "poca_smem_optin": [_I, _P],
     # missed planes(ptr array) n_planes out stride offs n_alive status R | stream
     "poca_stream_compact": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _P],
     # missed offs packed(ptr array) n_planes fills(int array) out stride R | stream

@@ -24,7 +24,7 @@ from cpppathtracer_tpu_torch.ops.cuda import build as kb
 
 # lanes per block of both kernels (csrc/compact.cu POCA_CB)
 BLOCK = 1024
-_MAX_PLANES = 32
+MAX_PLANES = 32
 _MAX_LANES = 1 << 30  # the look-back's status word keeps a count in 30 bits
 _DTYPES = (torch.float32, torch.int32)
 
@@ -53,8 +53,8 @@ def _fill_array(fills: tuple, is_float: tuple):
 def _plane_ptrs(planes, r, dev):
     """Check the planes (float32 or int32 [R], contiguous, on `dev`) and
     return their pointers as a ctypes array and which are float."""
-    if not 0 < len(planes) <= _MAX_PLANES:
-        raise ValueError(f"1 to {_MAX_PLANES} planes are supported, got {len(planes)}")
+    if not 0 < len(planes) <= MAX_PLANES:
+        raise ValueError(f"1 to {MAX_PLANES} planes are supported, got {len(planes)}")
     ptrs, is_float = [], []
     for k, t in enumerate(planes):
         if t.dtype not in _DTYPES or t.shape != (r,) or t.device != dev or not t.is_contiguous():

@@ -103,26 +103,11 @@ def mega_bwd(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, with_carry
 
 def mega_bwd_plain(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, with_carry=False):
     """Plain PyTorch version of :func:`mega_bwd` (same arguments and
-    outputs), on any device: torch autograd of the replay."""
+    outputs), on any device: torch autograd of the replay,
+    ``ops/mega.py::replay_vjp``."""
     # ops/mega.py imports this module for its backward, so its replay is
     # imported here, at call time
-    from cpppathtracer_tpu_torch.ops.mega import _replay_outputs
+    from cpppathtracer_tpu_torch.ops.mega import replay_vjp
 
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(True) for t in (*o, *d, ts, trt)]
-        rad, md, mt, missed, fn, ft, o_f = _replay_outputs(
-            tuple(leaves[0:3]), tuple(leaves[3:6]), leaves[6], leaves[7],
-            pixel_idx, sample_idx, seed, tuple(hits.unbind(0)),
-        )
-        outs = [*rad, *md, *mt, *fn, ft]
-        used = [k for k, y in enumerate(outs) if y.requires_grad]
-        grads = torch.autograd.grad(
-            [outs[k] for k in used], leaves, grad_outputs=[ct[k] for k in used],
-            allow_unused=True,
-        )
-    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
-    out = (grads[6], grads[7], tuple(grads[0:3]), tuple(grads[3:6]))
-    if with_carry:
-        det = lambda v: tuple(c.detach() for c in v)
-        out = out + ((det(o_f), det(md), det(mt), missed),)
-    return out
+    return replay_vjp(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct,
+                      with_carry=with_carry)

@@ -11,18 +11,22 @@ uniforms keyed (seed, pixel, sample, 1 + bounce) and BSDF sampling;
 radiance gathers thru * emitted on live hits, thru takes the attenuation,
 a miss ends the path, and the next ray starts at the hit with the sampled
 direction and tmin = BOUNCE_RAY_TMIN.  The sky epilogue is the caller's.
+The `with_aux` form also returns, per bounce, the hit position and the
+attenuation-on mask (glass, or dot(normal, bounce_dir) > 0) that the
+textured-albedo epilogue (``integrator._mega_tex_radiance``) reads.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from cpppathtracer_tpu_torch.ops import planar
 from cpppathtracer_tpu_torch.ops.cuda import build as kb
 from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import ceil8, winner_index_plain
-from cpppathtracer_tpu_torch.types import INF, TMIN_BOUNCE
+from cpppathtracer_tpu_torch.types import INF, TMIN_BOUNCE, MaterialType
 from cpppathtracer_tpu_torch.utils.rng import uniforms4
 
 
@@ -36,12 +40,40 @@ def build_tables_T(gs):
     return pad(gs.table_s), pad(gs.table_r)
 
 
-def _outputs(out_f, out_o, hits, depth, with_o):
+def mega_smem_bytes(n_rep: int, n_pad: int) -> int:
+    """Shared memory one block of ``csrc/mega_trace.cu`` stages: the
+    geometry rows f32[n_rep, 8] and both record tables f32[13 + 4, n_pad]."""
+    return 4 * (8 * n_rep + 17 * n_pad)
+
+
+def check_mega_smem(n_rep: int, n_pad: int, limit: int):
+    """Raise ValueError when a scene's rows and tables exceed `limit`
+    bytes of shared memory per block."""
+    need = mega_smem_bytes(n_rep, n_pad)
+    if need > limit:
+        raise ValueError(
+            f"mega_trace stages {n_rep} geometry rows and {n_pad} table columns "
+            f"({need} bytes) in shared memory; one block of this card holds at most "
+            f"{limit} bytes: give the scene BVH tables (build(bvh=True)), or leave "
+            f"POCA_BVH unset so that they are used"
+        )
+
+
+@functools.cache
+def _smem_optin(index: int) -> int:
+    out = ctypes.c_int(0)
+    kb.check(kb.library().poca_smem_optin(index, ctypes.addressof(out)), "poca_smem_optin")
+    return out.value
+
+
+def _outputs(out_f, out_o, hits, depth, with_o, aux=None):
     rad = tuple(out_f[0:3])
     miss_dir = tuple(out_f[3:6])
     miss_thru = tuple(out_f[6:9])
+    if aux is not None:
+        aux = tuple((tuple(aux[4 * b:4 * b + 3]), aux[4 * b + 3]) for b in range(depth))
     out = (rad, miss_dir, miss_thru, out_f[9], tuple(out_f[10:13]), out_f[13],
-           tuple(hits[b] for b in range(depth)), None)
+           tuple(hits[b] for b in range(depth)), aux)
     if with_o:
         out = out + (tuple(out_o),)
     return out
@@ -60,15 +92,17 @@ def mega_trace(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts, dept
     hit -1).
 
     Returns (rad vec3, miss_dir vec3, miss_thru vec3, missed f32[R],
-    first_n vec3, first_t f32[R], hit_idx: depth i32[R] planes, None),
+    first_n vec3, first_t f32[R], hit_idx: depth i32[R] planes, aux),
     plus the final origin vec3 when `with_o`.  A hit plane holds the
-    winner's dense grouped index on a hit and -1 on a miss.
+    winner's dense grouped index on a hit and -1 on a miss.  aux is None,
+    or with `with_aux` a tuple of depth (pos vec3, att f32[R]): the
+    bounce's hit position (the ray's origin on a miss) and its
+    attenuation-on mask, 1.0 or 0.0; zeros on inactive lanes.
 
     CUDA tensors launch ``csrc/mega_trace.cu``; CPU tensors take
-    :func:`mega_trace_plain`.
+    :func:`mega_trace_plain`.  A scene whose rows and tables exceed the
+    card's shared memory per block raises ValueError.
     """
-    if with_aux:
-        raise NotImplementedError("with_aux (textured scenes) is not ported yet")
     if alive_mask is not None and n_alive is None:
         raise ValueError("alive_mask needs n_alive")
     dev = pixel_idx.device
@@ -76,7 +110,7 @@ def mega_trace(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts, dept
         return mega_trace_plain(
             o, d, pixel_idx, sample_idx, seed, geom, ts, trt, counts=counts,
             depth=depth, start_bounce=start_bounce, with_o=with_o, thru=thru,
-            n_alive=n_alive, alive_mask=alive_mask,
+            n_alive=n_alive, alive_mask=alive_mask, with_aux=with_aux,
         )
     if dev.type != "cuda":
         raise ValueError(f"mega_trace runs on cuda or cpu tensors, got {dev}")
@@ -95,6 +129,8 @@ def mega_trace(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts, dept
     kb.require(trt, "trt", f32, (4, n_pad), dev)
     if geom.shape[0] < ceil8(n_s) + ceil8(n_p) + ceil8(n_c) or n_pad < n_s + n_p + n_c:
         raise ValueError("scene tables are smaller than the counts")
+    check_mega_smem(geom.shape[0], n_pad, _smem_optin(dev.index if dev.index is not None
+                                                      else torch.cuda.current_device()))
     if n_alive is not None:
         kb.require(n_alive, "n_alive", i32, (1,), dev)
     if alive_mask is not None:
@@ -103,6 +139,7 @@ def mega_trace(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts, dept
     out_f = torch.empty((14, r), dtype=f32, device=dev)
     out_o = torch.empty((3, r), dtype=f32, device=dev) if with_o else None
     hits = torch.empty((depth, r), dtype=i32, device=dev)
+    aux = torch.empty((4 * depth, r), dtype=f32, device=dev) if with_aux else None
     thru_p = [kb.ptr(t) for t in thru] if thru is not None else [None] * 3
     with torch.cuda.device(dev):
         err = kb.library().poca_mega_trace(
@@ -110,19 +147,19 @@ def mega_trace(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts, dept
             pixel_idx.data_ptr(), sample_idx.data_ptr(),
             geom.data_ptr(), ts.data_ptr(), trt.data_ptr(),
             kb.ptr(n_alive), kb.ptr(alive_mask),
-            out_f.data_ptr(), kb.ptr(out_o), hits.data_ptr(),
+            out_f.data_ptr(), kb.ptr(out_o), hits.data_ptr(), kb.ptr(aux),
             r, n_s, n_p, n_c, geom.shape[0], n_pad, depth, start_bounce,
             ctypes.c_int32(int(seed) & 0xFFFFFFFF).value,
             kb.stream_handle(pixel_idx),
         )
     kb.check(err, "mega_trace")
-    kb.LAUNCHES["mega_trace"] += 1
-    return _outputs(out_f, out_o, hits, depth, with_o)
+    kb.LAUNCHES["mega_trace_aux" if with_aux else "mega_trace"] += 1
+    return _outputs(out_f, out_o, hits, depth, with_o, aux)
 
 
 def mega_trace_plain(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts,
                      depth, start_bounce=0, with_o=False, thru=None, n_alive=None,
-                     alive_mask=None):
+                     alive_mask=None, with_aux=False):
     """Plain PyTorch version of :func:`mega_trace` (same arguments and
     outputs), on any device."""
     r = pixel_idx.shape[0]
@@ -141,7 +178,7 @@ def mega_trace_plain(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts
     alive = active
     tmax = zero + INF
     table_s, table_r = ts.T, trt.T
-    hits = []
+    hits, aux = [], []
     for b in range(depth):
         tmin = zero + (0.0 if start_bounce + b == 0 else TMIN_BOUNCE)
         best_i = winner_index_plain(counts, o, d, tmin, tmax, geom)
@@ -152,6 +189,11 @@ def mega_trace_plain(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts
         bounce_dir, attenuation, emitted = planar.shade_p(
             mats, hitrec["normal"], d, u1, u2, u3, score_grad=False
         )
+        if with_aux:
+            att_on = (mats["mat_type"] == MaterialType.GLASS) | (
+                planar.dot_p(hitrec["normal"], bounce_dir) > 0.0
+            )
+            aux += [*hitrec["pos"], att_on.to(torch.float32)]
         live_hit = hit & alive
         lh = live_hit.to(torch.float32)
         rad = planar.add_p(rad, planar.scale_p(planar.mul_p(thru, emitted), lh))
@@ -168,4 +210,5 @@ def mega_trace_plain(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts
     out_f = torch.where(active, out_f, zero)
     out_o = torch.where(active, torch.stack(o), zero) if with_o else None
     hit_st = torch.where(active, torch.stack(hits), torch.full_like(hits[0], -1))
-    return _outputs(out_f, out_o, hit_st, depth, with_o)
+    aux_st = torch.where(active, torch.stack(aux), zero) if with_aux else None
+    return _outputs(out_f, out_o, hit_st, depth, with_o, aux_st)

@@ -81,20 +81,23 @@ def use_bvh(gs) -> bool:
     return gs.bvh_meta is not None and os.environ.get("POCA_BVH", "1") != "0"
 
 
-def intersect_and_gather_planar(gs, o, d, tmin, tmax):
-    """Closest hit and its record for planar rays (o, d tuples of f32[R]):
-    the winner index by the BVH walk (``csrc/bvh.cu``) when
-    :func:`use_bvh`, else by the dense search (``csrc/winner.cu``) over
-    :func:`build_geom_rows` of `gs`, then the record fetch and hit
-    attributes of ``planar.gather_epilogue_p``.
-
-    The winner index is piecewise constant and carries no gradient; the
-    epilogue is differentiable.  Returns (hitrec, mats)."""
+def closest_index(gs, o, d, tmin, tmax):
+    """Dense grouped winner index i32[R] of planar rays (o, d tuples of
+    f32[R]): the BVH walk (``csrc/bvh.cu``) when :func:`use_bvh`, else the
+    dense search (``csrc/winner.cu``) over :func:`build_geom_rows` of
+    `gs`.  Piecewise constant, so it carries no gradient."""
     flat = lambda t: t.detach().contiguous()
     ray = ([flat(c) for c in o], [flat(c) for c in d], flat(tmin), flat(tmax))
     if use_bvh(gs):
-        gidx = bvh_winner_index(*ray, gs.bvh_meta, gs.bvh_aabb, gs.bvh_objs,
+        return bvh_winner_index(*ray, gs.bvh_meta, gs.bvh_aabb, gs.bvh_objs,
                                 leaf_size=gs.bvh_dims[1], layout=gs.bvh_layout)
-    else:
-        gidx = winner_index(gs.counts, *ray, build_geom_rows(gs).detach())
+    return winner_index(gs.counts, *ray, build_geom_rows(gs).detach())
+
+
+def intersect_and_gather_planar(gs, o, d, tmin, tmax):
+    """Closest hit and its record for planar rays: :func:`closest_index`,
+    then the record fetch and hit attributes of
+    ``planar.gather_epilogue_p``, which is differentiable.  Returns
+    (hitrec, mats)."""
+    gidx = closest_index(gs, o, d, tmin, tmax)
     return planar.gather_epilogue_p(gs.table_s, gs.table_r, o, d, tmin, tmax, gidx)

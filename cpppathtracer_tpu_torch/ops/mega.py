@@ -23,6 +23,14 @@ On the card the hand-written kernel ``csrc/mega_bwd.cu`` computes it; on
 the CPU, torch autograd of :func:`_replay_outputs`.  The JAX package's
 split replay, 16-bit residual packing and layout firewall are TPU memory
 and layout devices and are not ported.
+
+Textured scenes (`with_aux`): the forward also returns the kernel's
+per-bounce hit positions and attenuation-on masks, which the texture
+epilogue (``integrator._mega_tex_radiance``) reads.  Their backward is
+torch autograd of ``_replay_outputs(with_aux=True)`` on every device, not
+``mega_bwd``: the replayed mask carries the score-function weight, whose
+cotangent the hand-written backward does not take, so the JAX package
+routes textured samples to its replay the same way (`ops/mega.py:994-996`).
 """
 
 from __future__ import annotations
@@ -30,11 +38,11 @@ from __future__ import annotations
 import torch
 
 from cpppathtracer_tpu_torch.ops import planar
-from cpppathtracer_tpu_torch.ops.cuda.compact_kernel import stream_compact, stream_expand
+from cpppathtracer_tpu_torch.ops.cuda.compact_kernel import MAX_PLANES, stream_compact, stream_expand
 from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import build_geom_rows
 from cpppathtracer_tpu_torch.ops.cuda.mega_bwd_kernel import mega_bwd
 from cpppathtracer_tpu_torch.ops.cuda.mega_kernel import build_tables_T, mega_trace
-from cpppathtracer_tpu_torch.types import INF, TMIN_BOUNCE
+from cpppathtracer_tpu_torch.types import INF, TMIN_BOUNCE, MaterialType
 from cpppathtracer_tpu_torch.utils.rng import uniforms4
 
 _MEGA_TILE = 1024
@@ -62,7 +70,8 @@ def _split_plan(r: int, depth: int) -> int:
 # ------------------------------------------------------------------ replay
 
 
-def _replay_chain(ts, trt, o, d, thru, rad, alive, hit_planes, pixel_idx, sample_idx, seed):
+def _replay_chain(ts, trt, o, d, thru, rad, alive, hit_planes, pixel_idx, sample_idx, seed,
+                  with_aux=False):
     """Bounces [0, len(hit_planes)) rebuilt from the saved winner planes
     (the JAX package's `_replay_chain` from bounce 0: its later start
     serves only the split replay, which is not ported).
@@ -71,8 +80,12 @@ def _replay_chain(ts, trt, o, d, thru, rad, alive, hit_planes, pixel_idx, sample
     gradients flow through t and the normal, but the saved sign alone
     decides whether the bounce hit (`hit = enc >= 0`): the value being
     differentiated is the one the kernel's chain produced
-    (`tests/test_mega.py:260`).  Returns the carry (o, d, thru, rad, alive)
-    and the first-bounce records (first_n, first_t).
+    (`tests/test_mega.py:260`).  Returns the carry (o, d, thru, rad, alive),
+    the first-bounce records (first_n, first_t) and, with `with_aux`, per
+    bounce (pos vec3, att): the attenuation-on mask times the
+    score-function weight (1.0 in value) times the saved hit, so that
+    the reflectivity and Fresnel gradients of textured scenes flow through
+    the epilogue's use of it (JAX `ops/mega.py:125-146`).
     """
     # The records are gathered from float64 copies of the tables and read
     # back as float32, so the values are unchanged, but autograd sums each
@@ -83,6 +96,7 @@ def _replay_chain(ts, trt, o, d, thru, rad, alive, hit_planes, pixel_idx, sample
     first_n = (zero, zero, zero)
     first_t = zero
     tmax = zero + INF
+    aux = []
     for b, enc in enumerate(hit_planes):
         tmin = zero + (0.0 if b == 0 else TMIN_BOUNCE)
         hitrec, mats = planar.gather_epilogue_p(
@@ -90,9 +104,14 @@ def _replay_chain(ts, trt, o, d, thru, rad, alive, hit_planes, pixel_idx, sample
         )
         hit = enc >= 0
         u1, u2, u3, _ = uniforms4(seed, pixel_idx, sample_idx, 1 + b)
-        bounce_dir, attenuation, emitted, _ = planar.shade_p(
+        bounce_dir, attenuation, emitted, score_w = planar.shade_p(
             mats, hitrec["normal"], d, u1, u2, u3, with_score=True
         )
+        if with_aux:
+            att_on = (mats["mat_type"] == MaterialType.GLASS) | (
+                planar.dot_p(hitrec["normal"], bounce_dir) > 0.0
+            )
+            aux.append((hitrec["pos"], att_on.to(torch.float32) * score_w * hit.to(torch.float32)))
         live_hit = hit & alive
         lh = live_hit.to(torch.float32)
         rad = planar.add_p(rad, planar.scale_p(planar.mul_p(thru, emitted), lh))
@@ -103,46 +122,84 @@ def _replay_chain(ts, trt, o, d, thru, rad, alive, hit_planes, pixel_idx, sample
         alive = alive & hit
         o = planar.where_p(hit, hitrec["pos"], o)
         d = planar.where_p(hit, planar.normalize_p(bounce_dir), d)
-    return o, d, thru, rad, alive, first_n, first_t
+    return o, d, thru, rad, alive, first_n, first_t, aux
 
 
-def _replay_outputs(o, d, ts, trt, pixel_idx, sample_idx, seed, hit_planes):
+def _replay_outputs(o, d, ts, trt, pixel_idx, sample_idx, seed, hit_planes, with_aux=False):
     """The megakernel's outputs rebuilt from the primary rays (o, d) and the
     saved winner planes: (rad, miss_dir, miss_thru, missed, first_n,
-    first_t), plus the final origin, as `mega_trace` returns them."""
+    first_t), plus the final origin, as `mega_trace` returns them, and
+    with `with_aux` the per-bounce (pos, att) of :func:`_replay_chain`."""
     zero = torch.zeros_like(o[0])
     one = zero + 1.0
-    o, d, thru, rad, alive, first_n, first_t = _replay_chain(
+    o, d, thru, rad, alive, first_n, first_t, aux = _replay_chain(
         ts, trt, o, d, (one, one, one), (zero, zero, zero), zero < 1.0, hit_planes,
-        pixel_idx, sample_idx, seed,
+        pixel_idx, sample_idx, seed, with_aux,
     )
     missed = (~alive).to(torch.float32)
-    return rad, d, thru, missed, first_n, first_t, o
+    out = (rad, d, thru, missed, first_n, first_t, o)
+    return out + (tuple(aux),) if with_aux else out
+
+
+def replay_vjp(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, ct_aux=None,
+               with_carry=False):
+    """Cotangents (ct_ts, ct_trt, ct_o, ct_d) of one sample by torch
+    autograd of :func:`_replay_outputs`, given the 13 cotangents of
+    (rad, miss_dir, miss_thru, first_n, first_t) and, for a textured
+    sample, `ct_aux`, those of its 4 * depth aux planes.  With
+    `with_carry`, also the rebuilt final carry (o, d, thru, missed).
+    Without aux it is ``mega_bwd_plain``, the plain version of
+    ``csrc/mega_bwd.cu``; with aux, the backward of every textured
+    sample."""
+    with_aux = ct_aux is not None
+    leaves = [t.detach().requires_grad_() for t in (*o, *d, ts, trt)]
+    with torch.enable_grad():
+        rad, md, mt, missed, fn, ft, o_f, *aux = _replay_outputs(
+            tuple(leaves[0:3]), tuple(leaves[3:6]), leaves[6], leaves[7], pixel_idx,
+            sample_idx, seed, tuple(hits.unbind(0)), with_aux=with_aux,
+        )
+        outs = [*rad, *md, *mt, *fn, ft] + [c for pos, att in (aux[0] if aux else ())
+                                             for c in (*pos, att)]
+        cts = list(ct) + (list(ct_aux) if with_aux else [])
+        used = [k for k, y in enumerate(outs) if y.requires_grad]
+        grads = torch.autograd.grad([outs[k] for k in used], leaves,
+                                    grad_outputs=[cts[k] for k in used], allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
+    out = (grads[6], grads[7], tuple(grads[0:3]), tuple(grads[3:6]))
+    if with_carry:
+        det = lambda v: tuple(c.detach() for c in v)
+        out = out + ((det(o_f), det(md), det(mt), missed),)
+    return out
 
 
 # ---------------------------------------------------------------- forward
 
 
-def _trace(o, d, pix, samp, seed, depth, geom, ts, trt, counts):
+def _trace(o, d, pix, samp, seed, depth, geom, ts, trt, counts, with_aux=False):
     """The megakernel's forward of one sample, split where `_split_plan`
     says.  Returns (rad, miss_dir, miss_thru, missed, first_n, first_t,
-    hit planes)."""
-    trace = lambda *a, **kw: mega_trace(*a, geom, ts, trt, counts=counts, **kw)
+    hit planes, aux planes: 4 per bounce (pos vec3, att) with `with_aux`,
+    else none).  Phase B's aux planes return to their pixels with fill
+    0.0, as its other outputs do (JAX `ops/mega.py:710-717`), in calls of
+    at most MAX_PLANES planes over the same offs."""
+    trace = lambda *a, **kw: mega_trace(*a, geom, ts, trt, counts=counts, with_aux=with_aux,
+                                        **kw)
+    flat_aux = lambda aux: [c for pos, att in aux for c in (*pos, att)] if with_aux else []
     split = _split_plan(pix.shape[0], depth)
     if not split:
-        rad, miss_dir, miss_thru, missed, first_n, first_t, hit_idx, _ = trace(
+        rad, miss_dir, miss_thru, missed, first_n, first_t, hit_idx, aux = trace(
             o, d, pix, samp, seed, depth=depth
         )
-        return rad, miss_dir, miss_thru, missed, first_n, first_t, hit_idx
+        return rad, miss_dir, miss_thru, missed, first_n, first_t, hit_idx, flat_aux(aux)
 
-    (rad_a, d_a, thru_a, missed_a, first_n, first_t, hit_a, _, o_a) = trace(
+    (rad_a, d_a, thru_a, missed_a, first_n, first_t, hit_a, aux_a, o_a) = trace(
         o, d, pix, samp, seed, depth=split, with_o=True
     )
     packed, offs, n_alive = stream_compact(
         missed_a, [pix, samp, *o_a, *d_a, *thru_a, missed_a]
     )
     nb = depth - split
-    rad_b, md_b, mt_b, missed_b, _, _, hit_b, _ = trace(
+    rad_b, md_b, mt_b, missed_b, _, _, hit_b, aux_b = trace(
         tuple(packed[2:5]), tuple(packed[5:8]), packed[0], packed[1], seed,
         depth=nb, start_bounce=split, thru=tuple(packed[8:11]),
         n_alive=n_alive, alive_mask=packed[11],
@@ -150,13 +207,18 @@ def _trace(o, d, pix, samp, seed, depth, geom, ts, trt, counts):
     back = stream_expand(
         missed_a, offs, [*rad_b, *md_b, *mt_b, missed_b, *hit_b], [0.0] * 10 + [-1] * nb
     )
+    aux_b = flat_aux(aux_b)
+    for k in range(0, len(aux_b), MAX_PLANES):
+        part = aux_b[k:k + MAX_PLANES]
+        back += stream_expand(missed_a, offs, part, [0.0] * len(part))
     a_dead = missed_a > 0.0
     rad = tuple(rad_a[k] + back[k] for k in range(3))
     miss_dir = tuple(torch.where(a_dead, d_a[k], back[3 + k]) for k in range(3))
     miss_thru = tuple(torch.where(a_dead, thru_a[k], back[6 + k]) for k in range(3))
     missed = missed_a + back[9]
-    hit_idx = tuple(hit_a) + tuple(back[10:])
-    return rad, miss_dir, miss_thru, missed, first_n, first_t, hit_idx
+    hit_idx = tuple(hit_a) + tuple(back[10:10 + nb])
+    return (rad, miss_dir, miss_thru, missed, first_n, first_t, hit_idx,
+            flat_aux(aux_a) + back[10 + nb:])
 
 
 class MegaSample(torch.autograd.Function):
@@ -164,42 +226,50 @@ class MegaSample(torch.autograd.Function):
     rays (o, d) and the record tables (ts, trt).
 
     Outputs: rad vec3, miss_dir vec3, miss_thru vec3, missed, first_n vec3,
-    first_t (14 f32[R]) and the winner planes i32[depth, R]; missed and
-    the planes carry no gradient.  The backward returns the cotangents of
-    o, d, ts and trt through :func:`mega_bwd`.
+    first_t (14 f32[R]), the winner planes i32[depth, R] and, with
+    `with_aux`, 4 * depth aux planes f32[R] (pos vec3, att per bounce);
+    missed and the winner planes carry no gradient.  The backward returns
+    the cotangents of o, d, ts and trt: through :func:`mega_bwd`, or for
+    `with_aux` through torch autograd of :func:`_replay_outputs` (see the
+    module's docstring).
     """
 
     @staticmethod
-    def forward(ctx, ox, oy, oz, dx, dy, dz, ts, trt, pix, samp, seed, depth, geom, counts):
+    def forward(ctx, ox, oy, oz, dx, dy, dz, ts, trt, pix, samp, seed, depth, geom, counts,
+                with_aux):
         o = (ox.contiguous(), oy.contiguous(), oz.contiguous())
         d = (dx.contiguous(), dy.contiguous(), dz.contiguous())
-        rad, miss_dir, miss_thru, missed, first_n, first_t, hit_idx = _trace(
-            o, d, pix, samp, seed, depth, geom, ts, trt, counts
+        rad, miss_dir, miss_thru, missed, first_n, first_t, hit_idx, aux = _trace(
+            o, d, pix, samp, seed, depth, geom, ts, trt, counts, with_aux
         )
         hits = torch.stack(hit_idx)
         ctx.mark_non_differentiable(missed, hits)
         ctx.save_for_backward(*o, *d, pix, samp, ts, trt, hits)
-        ctx.seed = seed
-        return (*rad, *miss_dir, *miss_thru, missed, *first_n, first_t, hits)
+        ctx.seed, ctx.with_aux = seed, with_aux
+        return (*rad, *miss_dir, *miss_thru, missed, *first_n, first_t, hits, *aux)
 
     @staticmethod
     def backward(ctx, *ct):
         ox, oy, oz, dx, dy, dz, pix, samp, ts, trt, hits = ctx.saved_tensors
         cts = [c.contiguous() for c in ct[:9] + ct[10:14]]  # missed has none
-        ct_ts, ct_trt, ct_o, ct_d = mega_bwd(
-            (ox, oy, oz), (dx, dy, dz), pix, samp, ctx.seed, ts, trt, hits, cts
-        )
-        return (*ct_o, *ct_d, ct_ts, ct_trt) + (None,) * 6
+        args = ((ox, oy, oz), (dx, dy, dz), pix, samp, ctx.seed, ts, trt, hits, cts)
+        if ctx.with_aux:  # the reference's route for textured samples (module docstring)
+            ct_ts, ct_trt, ct_o, ct_d = replay_vjp(*args, ct_aux=ct[15:])
+        else:
+            ct_ts, ct_trt, ct_o, ct_d = mega_bwd(*args)
+        return (*ct_o, *ct_d, ct_ts, ct_trt) + (None,) * 7
 
 
-def mega_sample(gs, camera, pixel_idx, sample_idx, seed, depth):
+def mega_sample(gs, camera, pixel_idx, sample_idx, seed, depth, with_aux=False):
     """One sample for flat pixel indices i32[R] at sample `sample_idx`
     (int or i32[R]).
 
     Returns planar (rad vec3, miss_dir vec3, miss_thru vec3, missed
-    f32[R], first_n vec3, first_t f32[R], hit_idx: depth i32[R] planes);
-    the sky epilogue is the caller's.  Differentiable w.r.t. the grouped
-    scene's tables and the camera: ray generation and the table build stay
+    f32[R], first_n vec3, first_t f32[R], hit_idx: depth i32[R] planes),
+    plus with `with_aux` the per-bounce (pos vec3, att f32[R]) that the
+    textured-albedo epilogue reads (pos and att carry gradients); the sky
+    epilogue is the caller's.  Differentiable w.r.t. the grouped scene's
+    tables and the camera: ray generation and the table build stay
     outside the autograd Function, so their gradients are autograd's.
     """
     r = pixel_idx.shape[0]
@@ -210,6 +280,11 @@ def mega_sample(gs, camera, pixel_idx, sample_idx, seed, depth):
     with torch.no_grad():
         geom = build_geom_rows(gs)
     ts, trt = build_tables_T(gs)
-    out = MegaSample.apply(*o, *d, ts, trt, pix, samp, seed, depth, geom, tuple(gs.counts))
-    return (out[0:3], out[3:6], out[6:9], out[9], out[10:13], out[13],
-            tuple(out[14].unbind(0)))
+    out = MegaSample.apply(*o, *d, ts, trt, pix, samp, seed, depth, geom, tuple(gs.counts),
+                           with_aux)
+    res = (out[0:3], out[3:6], out[6:9], out[9], out[10:13], out[13],
+           tuple(out[14].unbind(0)))
+    if with_aux:
+        res = res + (tuple((tuple(out[15 + 4 * b:18 + 4 * b]), out[18 + 4 * b])
+                           for b in range(depth)),)
+    return res

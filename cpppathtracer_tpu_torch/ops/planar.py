@@ -136,12 +136,15 @@ def phong_lobe_p(u1, u2, alpha):
     return r * torch.cos(phi), r * torch.sin(phi), z
 
 
-def shade_p(mat, normal, in_dir, u1, u2, u3, score_grad=True, with_score=False):
+def shade_p(mat, normal, in_dir, u1, u2, u3, kd_override=None, score_grad=True,
+            with_score=False):
     """BSDF sampling (the JAX package's `planar.shade_p`).
 
     mat: dict of float32[R] tensors mat_type (int), smoothness,
     reflectivity, ior, emission, and kd_p, a planar vec3.
-    Returns (bounce_dir, attenuation, emitted), planar vec3s.  With
+    Returns (bounce_dir, attenuation, emitted), planar vec3s.
+    `kd_override` (a planar vec3, the textured albedo) replaces kd in the
+    attenuation only: the emission reads the raw kd (`material.cu:36`).  With
     `score_grad` the attenuation carries the score-function weight
     (ops/bsdf.py: 1.0 in value, the reflectivity and Fresnel gradients in
     the backward); the megakernel's forward passes False.  `with_score`
@@ -203,7 +206,8 @@ def shade_p(mat, normal, in_dir, u1, u2, u3, score_grad=True, with_score=False):
     above_horizon = dot_p(normal, bounce_dir) > 0
     atten_on = is_glass | above_horizon
     zero = _zero(u1)
-    attenuation = where_p(atten_on, kd, (zero, zero, zero))
+    atten_kd = kd if kd_override is None else kd_override
+    attenuation = where_p(atten_on, atten_kd, (zero, zero, zero))
     w = None
     if score_grad or with_score:
         w = _score_weight(is_mirror, mirror_reflects, reflectivity, is_glass,
@@ -307,10 +311,15 @@ def gather_epilogue_p(table_s, table_r, o, d, tmin, tmax, gidx):
     attributes.  table_s f32[N, 13], table_r f32[N, 4] in the
     ``ops/fast.py`` column layout (or float64 copies, whose records are
     read back as float32); gidx i32[R] dense grouped indices.  Returns
-    (hitrec, mats) dicts of planar tensors."""
+    (hitrec, mats) dicts of planar tensors.  The gather is index_select,
+    whose backward adds the lanes' cotangents into the table rows with
+    atomics; advanced indexing's backward sorts the indices and
+    accumulates each run of equal indices serially, which costs hundreds
+    of milliseconds a bounce on the card when a million lanes share a few
+    hundred rows."""
     idx = gidx.long()
-    rec = table_s[idx].T.to(torch.float32)  # [F_S, R]
-    rec_r = table_r[idx].T.to(torch.float32)  # [F_R, R]
+    rec = table_s.index_select(0, idx).T.to(torch.float32)  # [F_S, R]
+    rec_r = table_r.index_select(0, idx).T.to(torch.float32)  # [F_R, R]
     prim_type = rec[6].to(torch.int32)
     center = (rec[0], rec[1], rec[2])
     t, normal = object_hit_attrs_p(
@@ -328,6 +337,7 @@ def gather_epilogue_p(table_s, table_r, o, d, tmin, tmax, gidx):
         "reflectivity": rec[9],
         "ior": rec[10],
         "tex_id": rec[11].to(torch.int32),
+        "_geom_p": (prim_type, center, rec[3], rec[4], rec[5]),
     }
     hitrec = {
         "t": torch.where(hit, t, torch.full_like(t, INF)),

@@ -34,8 +34,13 @@ def _mirror_index(i, n):
 
 def sample_bilinear(tex, u, v):
     """Bilinear fetch with mirror addressing.  tex f32[H,W,C]; u, v
-    f32[...] normalized.  Returns f32[..., C]."""
+    f32[...] normalized.  Returns f32[..., C].  The four taps are
+    index_select row gathers (see ``planar.gather_epilogue_p`` for why),
+    differentiable in tex and, through the weights, in u and v."""
     h, w = tex.shape[0], tex.shape[1]
+    flat = tex.reshape(h * w, -1)
+    tap = lambda yy, xx: flat.index_select(0, (yy * w + xx).flatten()).reshape(
+        *yy.shape, flat.shape[1])
     xb = u * w - 0.5
     yb = v * h - 0.5
     x0f = torch.floor(xb)
@@ -46,8 +51,8 @@ def sample_bilinear(tex, u, v):
     y0 = y0f.to(torch.int64)
     x0m, x1m = _mirror_index(x0, w), _mirror_index(x0 + 1, w)
     y0m, y1m = _mirror_index(y0, h), _mirror_index(y0 + 1, h)
-    top = tex[y0m, x0m] * (1.0 - fx) + tex[y0m, x1m] * fx
-    bot = tex[y1m, x0m] * (1.0 - fx) + tex[y1m, x1m] * fx
+    top = tap(y0m, x0m) * (1.0 - fx) + tap(y0m, x1m) * fx
+    bot = tap(y1m, x0m) * (1.0 - fx) + tap(y1m, x1m) * fx
     return top * (1.0 - fy) + bot * fy
 
 

@@ -90,6 +90,44 @@ def _bits(t):
     return t.view(torch.int32)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("alive", [None, 0.0, 0.2, 1.0], ids=["unguarded", "b0", "b20", "b100"])
+@pytest.mark.parametrize("r", [1000, R])
+def test_mega_trace_aux_matches_plain_on_card(dev, r, alive):
+    """The with_aux form (textured scenes), depth 8, on r demo primaries:
+    unguarded, or in the phase-B form with n_alive = r - 100 and a share
+    `alive` of the lanes unmasked.  Every output, the 4 x 8 aux planes
+    included, bitwise equal to the plain version's; its other outputs
+    bitwise equal to the form without aux; inactive lanes' aux planes 0."""
+    gs, args = _demo(dev)
+    cut = lambda v: tuple(c[:r].contiguous() for c in v)
+    args = (cut(args[0]), cut(args[1]), args[2][:r].contiguous(), args[3][:r].contiguous(),
+            *args[4:])
+    kw = {}
+    active = torch.ones(r, dtype=torch.bool, device=dev)
+    if alive is not None:
+        g = torch.Generator(device=dev).manual_seed(3)
+        amask = (torch.rand(r, device=dev, generator=g) >= alive).float()
+        kw = dict(start_bounce=2, thru=tuple(torch.rand(r, device=dev, generator=g) for _ in range(3)),
+                  n_alive=torch.tensor([r - 100], dtype=torch.int32, device=dev), alive_mask=amask)
+        active = (torch.arange(r, device=dev) < r - 100) & (amask == 0)
+    kb.reset_launches()
+    got = mega_trace(*args, counts=gs.counts, depth=8, with_aux=True, **kw)
+    plain_form = mega_trace(*args, counts=gs.counts, depth=8, **kw)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["mega_trace"] == kb.LAUNCHES["mega_trace_aux"] == 1
+    ref = mega_trace_plain(*args, counts=gs.counts, depth=8, with_aux=True, **kw)
+    flat = lambda o: [*o[0], *o[1], *o[2], o[3], *o[4], o[5], *o[6]]
+    aux = lambda o: [c for pos, att in o[7] for c in (*pos, att)]
+    assert len(aux(got)) == 32 and plain_form[7] is None
+    for a, b in zip(flat(got) + aux(got), flat(ref) + aux(ref)):
+        assert torch.equal(_bits(a), _bits(b))
+    for a, b in zip(flat(got), flat(plain_form)):
+        assert torch.equal(_bits(a), _bits(b))
+    for c in aux(got):
+        assert bool((c[~active] == 0).all())
+
+
 def _misaligned(t):
     """A contiguous copy of t that starts 4 bytes past a 16-byte boundary."""
     out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]

@@ -86,6 +86,33 @@ def _compare_outputs(got, ref, lanes):
         np.testing.assert_allclose(g, r, rtol=5e-3, atol=5e-3, err_msg=f"output {k}")
 
 
+def _compare_aux(got, ref, lanes):
+    """The with_aux planes on `lanes` (bool[R]), at each bounce on the
+    lanes whose hit plane is >= 0 there.  Hit positions as
+    `_compare_outputs` holds an output, with the share taken over the hit
+    lanes of all bounces together: a later bounce has few of them (32 to
+    185 of 2048 here), and its position carries the earlier bounces'
+    direction differences times its path length (measured at most 6.4e-4
+    of |p| + 1).  The attenuation-on masks, 0.0 or 1.0, equal on at least
+    99% of the hit lanes (measured 100%): each is a sign test of
+    dot(normal, bounce_dir), which a grazing direction decides either
+    way."""
+    assert got[7] is not None and len(got[7]) == len(ref[7])
+    pos_g, pos_r, att_g, att_r = [], [], [], []
+    for b, ((pg, ag), (pr, ar)) in enumerate(zip(got[7], ref[7])):
+        hit = lanes & (np.asarray(ref[6][b]) >= 0)
+        pos_g += [pg[k].numpy()[hit] for k in range(3)]
+        pos_r += [np.asarray(pr[k])[hit] for k in range(3)]
+        att_g.append(ag.numpy()[hit])
+        att_r.append(np.asarray(ar)[hit])
+    g, r = np.concatenate(pos_g), np.concatenate(pos_r)
+    assert np.isclose(g, r, rtol=5e-5, atol=5e-5).mean() >= 0.99
+    np.testing.assert_allclose(g, r, rtol=5e-3, atol=5e-3, err_msg="hit positions")
+    g, r = np.concatenate(att_g), np.concatenate(att_r)
+    assert set(np.unique(g)) <= {0.0, 1.0} and set(np.unique(r)) <= {0.0, 1.0}
+    assert (g == r).mean() >= 0.99, (g == r).mean()
+
+
 def _attrs_t(gs, idx, o, d, tmin):
     """t of each lane's ray against object `idx` (INF where idx < 0)."""
     rec = gs.table_s[torch.clamp(idx, min=0).long()].T
@@ -129,7 +156,7 @@ def test_mega_trace_primaries_match_pallas(demo_tables):
     where the two winners are t-ties within 1e-5 relative (a cylinder's
     bottom cap lies in the floor's plane; the Pallas kernel's MXU form
     rounds the tie the other way).  Outputs as `_compare_outputs` holds
-    them elsewhere."""
+    them elsewhere, and the with_aux planes as `_compare_aux` holds them."""
     jgs, gs = demo_tables
     rng = np.random.RandomState(1)
     cam = JCamera.make(512, 512, origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0))
@@ -138,8 +165,8 @@ def test_mega_trace_primaries_match_pallas(demo_tables):
     o = np.stack([np.asarray(c) for c in o_j])
     d = np.stack([np.asarray(c) for c in d_j])
     samp = rng.randint(0, 64, R).astype(np.int32)
-    ref = _pallas(jgs, o, d, pix, samp, 5, 1)
-    got = _plain(gs, o, d, pix, samp, 5, 1)
+    ref = _pallas(jgs, o, d, pix, samp, 5, 1, with_aux=True)
+    got = _plain(gs, o, d, pix, samp, 5, 1, with_aux=True)
     hg, hr = _hits(got)[0], _hits(ref)[0]
     assert (hg >= 0).mean() > 0.5
     differ = hg != hr
@@ -150,6 +177,7 @@ def test_mega_trace_primaries_match_pallas(demo_tables):
     t_r = _attrs_t(gs, torch.from_numpy(hr.copy()), *ray, tmin)[differ]
     np.testing.assert_allclose(t_g, t_r, rtol=1e-5)
     _compare_outputs(got, ref, ~differ)
+    _compare_aux(got, ref, ~differ)
 
 
 @pytest.mark.parametrize("camera", [((130.0, 103.0, 130.0), 150.0), ((40.0, 25.0, 40.0), 50.0)],
@@ -176,8 +204,8 @@ def test_mega_trace_lockstep_matches_pallas(demo_tables, camera):
     misses (-1: the search's quadratic cancels, the epilogue's does not),
     or a glass winner (the demo scene nests a sphere in each hollow glass
     object, sharing its centre).  Lanes that agree match as
-    `_compare_outputs` holds them, and inactive lanes publish neutral
-    outputs."""
+    `_compare_outputs` and `_compare_aux` hold them, and inactive lanes
+    publish neutral outputs, aux planes included."""
     jgs, gs = demo_tables
     o, d, pix, samp = _rays(1, *camera)
     thru = np.ones((3, R), np.float32)
@@ -186,14 +214,15 @@ def test_mega_trace_lockstep_matches_pallas(demo_tables, camera):
     glass = gs.table_s[:, 7].numpy() == 3
     for b in range(DEPTH):
         kw = dict(start_bounce=b, thru=thru, n_alive=n_alive, alive_mask=missed)
-        ref = _pallas(jgs, o, d, pix, samp, 5, 1, with_o=True, **kw)
-        got = _plain(gs, o, d, pix, samp, 5, 1, with_o=True, **kw)
+        ref = _pallas(jgs, o, d, pix, samp, 5, 1, with_o=True, with_aux=True, **kw)
+        got = _plain(gs, o, d, pix, samp, 5, 1, with_o=True, with_aux=True, **kw)
         active = (np.arange(R) < n_alive) & (missed == 0)
         hg, hr = _hits(got)[0], _hits(ref)[0]
         agree = (hg == hr) & active
         bound = 0.005 if b == 0 else 0.08
         assert agree.sum() >= (1 - bound) * active.sum(), (b, agree.sum(), active.sum())
         _compare_outputs(got, ref, agree)
+        _compare_aux(got, ref, agree)
         differ = active & ~agree
         ray = (tuple(_t(c) for c in o), tuple(_t(c) for c in d))
         tmin = torch.full((R,), 0.0 if b == 0 else 2e-5)
@@ -206,7 +235,7 @@ def test_mega_trace_lockstep_matches_pallas(demo_tables, camera):
             | glass[np.maximum(hg, 0)] | glass[np.maximum(hr, 0)]
         )
         assert explained[differ].all(), (b, np.where(differ & ~explained)[0])
-        for plane in _flat(got):
+        for plane in _flat(got) + [c for pos, att in got[7] for c in (*pos, att)]:
             assert (plane.numpy()[~active] == 0).all()
         assert (hg[~active] == -1).all()
         o = np.stack([np.asarray(c) for c in ref[8]])
@@ -221,7 +250,7 @@ def test_mega_trace_chained_matches_pallas(demo_tables, phase_b):
     (start_bounce=2, thru, n_alive, alive_mask).  Along a whole path the
     surface re-hit decisions above compound, so at least 93% of the live
     lanes trace identical paths (measured 94.8% and up), and those match
-    as `_compare_outputs` holds them."""
+    as `_compare_outputs` and `_compare_aux` hold them."""
     jgs, gs = demo_tables
     o, d, pix, samp = _rays(2)
     kw = {}
@@ -232,15 +261,18 @@ def test_mega_trace_chained_matches_pallas(demo_tables, phase_b):
         kw = dict(start_bounce=2, thru=rng.uniform(0.1, 1.0, (3, R)).astype(np.float32),
                   n_alive=1500, alive_mask=amask)
         active = (np.arange(R) < 1500) & (amask == 0)
-    ref = _pallas(jgs, o, d, pix, samp, 9, DEPTH, **kw)
-    got = _plain(gs, o, d, pix, samp, 9, DEPTH, **kw)
+    ref = _pallas(jgs, o, d, pix, samp, 9, DEPTH, with_aux=True, **kw)
+    got = _plain(gs, o, d, pix, samp, 9, DEPTH, with_aux=True, **kw)
     agree = (_hits(got) == _hits(ref)).all(axis=0) & active
     assert agree.sum() >= 0.93 * active.sum(), (agree.sum(), active.sum())
     _compare_outputs(got, ref, agree)
+    _compare_aux(got, ref, agree)
 
 
 def test_mega_trace_wrapper_takes_plain_on_cpu(demo_tables):
-    """On CPU tensors the wrapper is the plain version and counts nothing."""
+    """On CPU tensors the wrapper is the plain version and counts nothing,
+    with_aux included; the with_aux form's other outputs are the plain
+    form's bitwise."""
     _, gs = demo_tables
     o, d, pix, samp = _rays(4)
     ts, trt = build_tables_T(gs)
@@ -252,8 +284,15 @@ def test_mega_trace_wrapper_takes_plain_on_cpu(demo_tables):
     assert kb.LAUNCHES["mega_trace"] == 0
     for x, y in zip(a[6], b[6]):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
-    with pytest.raises(NotImplementedError):
-        mega_trace(*args, counts=gs.counts, depth=2, with_aux=True)
+    a_aux = mega_trace(*args, counts=gs.counts, depth=2, with_aux=True)
+    b_aux = mega_trace_plain(*args, counts=gs.counts, depth=2, with_aux=True)
+    assert kb.LAUNCHES["mega_trace"] == kb.LAUNCHES["mega_trace_aux"] == 0
+    assert a[7] is None and len(a_aux[7]) == 2
+    flat = lambda out: _flat(out) + list(out[6]) + [c for p, att in out[7] or () for c in (*p, att)]
+    for x, y in zip(flat(a_aux), flat(b_aux)):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+    for x, y in zip(flat(a), flat(a_aux)):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
 
 
 # --------------------------------------------------------------- compaction

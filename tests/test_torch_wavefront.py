@@ -1,7 +1,8 @@
 """The port's per-bounce wavefront path against the JAX package's:
 render_radiance on a BVH scene, BVH walk vs dense winner inside the port,
-the progressive loop on a stale BVH scene, the path's refusal of a
-gradient, and the presets."""
+the progressive loop on a stale BVH scene, the path's gradient, and the
+presets.  (tests/test_torch_texture.py holds its gradients against the
+JAX package's.)"""
 
 import dataclasses
 import logging
@@ -107,18 +108,20 @@ def test_progressive_refits_stale_bvh(caplog):
     assert frame.shape == (8, 12, 3) and torch.isfinite(frame).all()
 
 
-def test_wavefront_refuses_gradients():
-    """The wavefront path serves only: a gradient raises, a no_grad render
-    of the same inputs runs."""
+def test_wavefront_gradients_flow():
+    """The wavefront path is differentiable: a BVH scene whose kd requires
+    grad gives a finite, nonzero kd gradient, and a no_grad render of the
+    same inputs the same radiance."""
     scene = presets.big_scene(96, bvh=True, device="cpu")
     cam = presets.big_camera(96, 8, 6, device="cpu")
     kd = scene.kd.clone().requires_grad_()
     s = scene.with_material_params({"kd": kd})
-    with pytest.raises(NotImplementedError, match="wavefront"):
-        render_radiance(s, cam, port_sky(SKY), spp=1, max_depth=2)
+    rad, _, _ = render_radiance(s, cam, port_sky(SKY), spp=1, max_depth=2)
+    (g,) = torch.autograd.grad((rad * rad).sum(), kd)
+    assert torch.isfinite(g).all() and g.abs().max() > 0
     with torch.no_grad():
-        rad, _, _ = render_radiance(s, cam, port_sky(SKY), spp=1, max_depth=2)
-    assert torch.isfinite(rad).all()
+        rad0, _, _ = render_radiance(s, cam, port_sky(SKY), spp=1, max_depth=2)
+    assert torch.equal(rad.detach(), rad0)
 
 
 @pytest.mark.parametrize("name", sorted(jpresets.PRESETS))
