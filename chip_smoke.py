@@ -19,9 +19,14 @@ big_scene(16384) with no walk in its backward; the demo scene's
 gradients under POCA_MEGA=0 against the megakernel path's) through the
 kernels, times each kernel beside its bound, its plain version and a
 PyTorch library yardstick (the walk also per bounce; the walk and the
-backward with their registers and resident blocks per SM), and prints:
+backward with their registers and resident blocks per SM; the megakernel
+and the dense winner launch with their registers, blocks launched, lane
+searches against live ray-bounces and their floor under --fmad=false
+beside the bound, in its [kernels] log lines), and prints:
   - the card's name and power limit (nvidia-smi);
-  - one JSON line {"kernels": [...]};
+  - one JSON line {"kernels": [...]}: beside the keys every kernel has,
+    only numbers this run measured, read from the built kernels or had the
+    kernels count (no floors and no counts worked out from a formula);
   - as the last line, {"ok": true, "device": {...}}.
 Any failed phase raises, and the script exits non-zero.  Without a CUDA
 card it exits non-zero before printing any result.
@@ -44,6 +49,12 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 non-tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# The FP32 rate counts an FMA as two operations; the kernels are built with
+# --fmad=false, so each multiply and each add is an instruction of its own:
+# at most 132 SMs x 128 FP32 lanes x 1.98 GHz (boost) instructions a second.  A kernel's floor
+# under that build is its operation count over this rate; the bound above
+# stays the least time the card could take for the same work.
+FP32_INSTR_PER_S = 132 * 128 * 1.98e9
 
 # FP32 operations per (object, ray) pair of the winner search and per ray
 # and bounce outside it, counted from csrc/winner.cuh and
@@ -95,20 +106,26 @@ def time_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20):
+def device_ms(fn, iters=20, attempts=3):
     """Device time per call of fn() under torch.profiler: the summed device
     time of the kernels, memsets and copies it issues over `iters` calls,
-    and the time per call of each by name."""
+    and the time per call of each by name.  A profile that recorded no
+    device event at all (the profiler's tracing dropped out, seen once in
+    some hundred profiles on the H100) is taken again, up to `attempts`
+    times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    else:
         raise AssertionError("torch.profiler recorded no device time")
     return (sum(e.device_time_total for e in events) / 1e3 / iters,
             {e.key[:40]: round(e.device_time_total / 1e3 / iters, 5) for e in events})
@@ -318,6 +335,36 @@ def kernel_info(fn, *args, n):
     return list(info)
 
 
+def mega_launch_shape(run, r, n_rep, n_pad, aux):
+    """The megakernel's launch shape and the work of one sample: registers,
+    local bytes, resident blocks per SM and the grid of one launch over R
+    lanes (phase A's and phase B's alike), from poca_mega_info; the lane
+    searches `run(stats=...)` (phase A + B) ran for a ray and the warp lane
+    slots they took, as the kernel counted them.  Returns (the fields read
+    or counted, for the kernels line; blocks launched a sample, 2 x the
+    grid, for the log alone)."""
+    from cpppathtracer_tpu_torch.ops.cuda import build as kb
+
+    regs, local, per_sm, grid = kernel_info(kb.library().poca_mega_info, int(aux), r, n_rep, n_pad,
+                                            n=4)
+    stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+    run(stats=stats)
+    searched, slots = stats.tolist()
+    return dict(registers=regs, local_bytes=local, blocks_per_sm=per_sm,
+                lanes_searched=searched, lane_slots=slots), 2 * grid
+
+
+def describe_shape(shape, blocks, live):
+    """The log's account of a launch shape: `shape` holds registers, local
+    bytes, blocks per SM, lane searches and lane slots; `blocks` the blocks
+    launched; `live` the live ray-bounces."""
+    return (f"{blocks} blocks launched ({shape['blocks_per_sm']} per SM, "
+            f"{shape['registers']} registers, {shape['local_bytes']} local bytes a thread); "
+            f"{shape['lanes_searched']} lane searches for a ray against {live} live ray-bounces "
+            f"({shape['lanes_searched'] / max(live, 1):.4f}), in {shape['lane_slots']} warp lane "
+            f"slots ({shape['lanes_searched'] / max(shape['lane_slots'], 1):.4f} of them busy)")
+
+
 def take(ray, lanes):
     """The rays (o, d, tmin, tmax) at `lanes`, contiguous."""
     o, d, tmin, tmax = ray
@@ -414,13 +461,14 @@ def textured_scene(scene, dev):
     return dataclasses.replace(scene, tex_id=tid), torch.from_numpy(tex).to(dev)
 
 
-def textured_phase(dev, scene, camera, sky, trace_args, gs, k1, time_kernels):
+def textured_phase(dev, scene, camera, sky, trace_args, gs, k1, time_kernels, live, floor_ms):
     """Textured albedo on the megakernel path: the with_aux form bitwise
     against its plain version (unsplit on 2^16 primaries, phase A, phase B
     with a poisoned tail) and through the split sample; the textured
     render, the unused-texture check, a profile and the training step.
     Returns the kernel row of the with_aux form (`time_kernels` times it at
-    the main path's shapes)."""
+    the main path's shapes; `live` live ray-bounces a sample, its
+    --fmad=false floor `floor_ms`)."""
     from cpppathtracer_tpu_torch.integrator import render_radiance
     from cpppathtracer_tpu_torch.ops import mega as mega_mod
     from cpppathtracer_tpu_torch.ops.cuda import build as kb
@@ -537,11 +585,18 @@ def textured_phase(dev, scene, camera, sky, trace_args, gs, k1, time_kernels):
         lambda: (mega_trace(*trace_args, **a_kw), mega_trace(*b_args, **b_kw)),
         lambda: (mega_trace_plain(*trace_args, **a_kw), mega_trace_plain(*b_args, **b_kw)),
         16 * r * DEPTH)
+    shape, blocks = mega_launch_shape(lambda **kw: (mega_trace(*trace_args, **a_kw, **kw),
+                                                    mega_trace(*b_args, **b_kw, **kw)),
+                                      r, geom.shape[0], ts.shape[1], True)
+    log(f"[kernels] mega_trace (with_aux) per sample (phase A + B): {ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms, --fmad=false floor {floor_ms:.4f} ms; "
+        f"{describe_shape(shape, blocks, live)}")
     return [dict(name="mega_trace (with_aux)", route="cuda",
                  source="cpppathtracer_tpu_torch/csrc/mega_trace.cu",
                  replaces="cpppathtracer_tpu/ops/pallas/mega_kernel.py:290",
                  launches=launches["mega_trace_aux"], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)]
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None, live_ray_bounces=live,
+                 **shape)]
 
 
 def bvh_phase(dev, sky):
@@ -831,9 +886,19 @@ def bvh_phase(dev, sky):
     ops_w = r * (OPS_SPHERE * n_s + OPS_PLATFORM * n_p + OPS_CYLINDER * n_c)
     bytes_w = r * 4 * (8 + 1) + geom4.numel() * 4
     ops_ws, bytes_ws = ops_w / FP32_OPS_PER_S, bytes_w / HBM_BYTES_PER_S
+    floor_w = ops_w / FP32_INSTR_PER_S
+    regs_w, local_w, per_sm_w, grid_w = kernel_info(kb.library().poca_winner_info, r,
+                                                    geom4.shape[0], n=4)
+    # for the log: one search per ray, a ray a thread (the kernel counts no
+    # lanes); the last block's threads past R run masked
+    shape_w = dict(registers=regs_w, local_bytes=local_w, blocks_per_sm=per_sm_w,
+                   lanes_searched=r, lane_slots=grid_w * 1024)
     log(f"[kernels] winner_index, 1024^2 primaries of big_scene(4096): {ms_w:.3f} ms, bound "
         f"{max(ops_ws, bytes_ws) * 1e3:.4f} ms ({ops_w:.4g} ops {ops_ws * 1e3:.4f} ms; "
-        f"{bytes_w / 1e6:.1f} MB {bytes_ws * 1e3:.4f} ms); plain {plain_w:.1f} ms")
+        f"{bytes_w / 1e6:.1f} MB {bytes_ws * 1e3:.4f} ms), --fmad=false floor "
+        f"{floor_w * 1e3:.4f} ms; plain {plain_w:.1f} ms; {geom4.shape[0]} rows in "
+        f"{32 * geom4.shape[0]} bytes of shared memory a block; blocks of 1024 threads: "
+        f"{describe_shape(shape_w, grid_w, r)}")
     by = lambda o, b: "operations" if o > b else "bytes"
     return [
         dict(name="bvh_winner_index", route="cuda", source="cpppathtracer_tpu_torch/csrc/bvh.cu",
@@ -844,7 +909,8 @@ def bvh_phase(dev, sky):
         dict(name="winner_index", route="cuda", source="cpppathtracer_tpu_torch/csrc/winner.cu",
              replaces="cpppathtracer_tpu/ops/pallas/intersect_kernel.py:419",
              launches=dense_launches["winner_index"], max_abs_err=err_w, ms=ms_w, plain_ms=plain_w,
-             bound_ms=max(ops_ws, bytes_ws) * 1e3, bound_by=by(ops_ws, bytes_ws), library_ms=None),
+             bound_ms=max(ops_ws, bytes_ws) * 1e3, bound_by=by(ops_ws, bytes_ws), library_ms=None,
+             registers=regs_w, local_bytes=local_w, blocks_per_sm=per_sm_w),
     ]
 
 
@@ -1121,6 +1187,10 @@ def main():
     ms_mega, plain_mega, _, _ = time_mega(
         lambda: (mega_trace(*trace_args, **a_kw), mega_trace(*b_args, **b_kw)),
         lambda: (mega_trace_plain(*trace_args, **a_kw), mega_trace_plain(*b_args, **b_kw)), 0)
+    mega_shape, mega_blocks = mega_launch_shape(
+        lambda **kw: (mega_trace(*trace_args, **a_kw, **kw), mega_trace(*b_args, **b_kw, **kw)),
+        r, geom.shape[0], ts.shape[1], False)
+    floor_mega = ops * (work_a + work_b) / FP32_INSTR_PER_S
     # the compaction: the miss plane and the alive lanes' payload words read, the packed
     # words, offs and n_alive written (beside it two larger counts: every payload word read;
     # every lane of every payload and packed plane moved, 4 R (2 + 2 P))
@@ -1171,7 +1241,8 @@ def main():
              replaces="cpppathtracer_tpu/ops/pallas/mega_kernel.py:290",
              launches=launches["mega_trace"], max_abs_err=max(errs.values()), ms=ms_mega,
              plain_ms=plain_mega, bound_ms=bound_mega * 1e3, bound_by="operations",
-             library_ms=None),
+             library_ms=None, live_ray_bounces=work_a + work_b,
+             **mega_shape),
         dict(name="stream_compact", route="cuda", source="cpppathtracer_tpu_torch/csrc/compact.cu",
              replaces="cpppathtracer_tpu/ops/pallas/compact_kernel.py:231",
              launches=launches["stream_compact"], max_abs_err=0.0, ms=ms_c, plain_ms=plain_c,
@@ -1185,7 +1256,8 @@ def main():
     ]
     log(f"[kernels] mega_trace per sample (phase A + B): {ms_mega:.3f} ms, bound {bound_mega * 1e3:.4f} ms "
         f"({ops} ops per ray-bounce, {work_a} + {work_b} live ray-bounces; its {bytes_mega / 1e6:.1f} MB "
-        f"alone bound it at {bytes_mega / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+        f"alone bound it at {bytes_mega / HBM_BYTES_PER_S * 1e3:.4f} ms), --fmad=false floor "
+        f"{floor_mega * 1e3:.4f} ms; {describe_shape(mega_shape, mega_blocks, work_a + work_b)}")
     # the backward at the training step's shapes: one sample, R = 1024^2, depth 8
     live_bwd = int((hits8 >= 0).sum())
     bytes_bwd = 4 * r * (6 + 2 + 13 + DEPTH + 6)
@@ -1208,7 +1280,8 @@ def main():
         f"plain {plain_bwd_ms:.1f} ms; {regs_bwd} registers, {local_bwd} local bytes a thread, "
         f"{per_sm_bwd} resident blocks of 128 threads per SM")
     # ---- phase 7: textured albedo on the megakernel path
-    kernels += textured_phase(dev, scene, camera, sky, trace_args, gs, k1, time_mega)
+    kernels += textured_phase(dev, scene, camera, sky, trace_args, gs, k1, time_mega,
+                              work_a + work_b, floor_mega * 1e3)
     # ---- phase 8: BVH scenes through the per-bounce wavefront path, and its training step
     kernels += bvh_phase(dev, sky)
     print(card, flush=True)

@@ -27,6 +27,17 @@ from cpppathtracer_tpu_torch.types import MaterialType, PrimitiveType, resolve_d
 AUTO_BVH_THRESHOLD = 2048
 
 
+def type_partition(prim_type: np.ndarray) -> tuple[tuple, tuple]:
+    """(type_perm, type_counts) of objects with these prim_types: the
+    objects as [spheres | platforms | cylinders | padding], each group in
+    the objects' own order, and (n_sphere, n_platform, n_cylinder)."""
+    order = np.concatenate(
+        [np.where(prim_type == t)[0] for t in (0, 1, 2)] + [np.where(prim_type < 0)[0]]
+    )
+    return (tuple(int(i) for i in order),
+            tuple(int((prim_type == t).sum()) for t in (0, 1, 2)))
+
+
 @dataclasses.dataclass
 class Scene:
     """Flat SoA scene.  All tensors share leading dim N; padding objects
@@ -65,9 +76,17 @@ class Scene:
     def device(self) -> torch.device:
         return self.center.device
 
+    def partition(self) -> tuple[tuple, tuple]:
+        """(type_perm, type_counts): the scene's metadata, or for a scene
+        made without it (a hand-made Scene) the partition that
+        SceneBuilder.build makes, from prim_type (:func:`type_partition`)."""
+        if self.type_perm and self.type_counts:
+            return self.type_perm, self.type_counts
+        return type_partition(self.prim_type.detach().cpu().numpy())
+
     def _grouped_geometry(self):
         """The geometry fields in grouped order, as numpy arrays."""
-        perm = np.asarray(self.type_perm, np.int64)
+        perm = np.asarray(self.partition()[0], np.int64)
         g = lambda a: a.detach().cpu().numpy()[perm]
         return g(self.center), g(self.radius), g(self.y_pos), g(self.height), g(self.prim_type)
 
@@ -76,8 +95,6 @@ class Scene:
         refit after geometry edits).  leaf_size None = the JAX package's
         rule, K = max(32, ceil8(ceil(N / 256))), which keeps M near 511
         nodes at any scene size."""
-        if not self.type_perm:
-            raise ValueError("with_bvh needs type-partition metadata")
         if leaf_size is None:
             k = -(-self.num_objects // 256)
             leaf_size = max(32, -(-k // 8) * 8)
@@ -246,13 +263,10 @@ class SceneBuilder:
         prim_type = np.full(m, -1, np.int32)
         for i, o in enumerate(self._objs):
             prim_type[i] = o.prim_type
-        order = np.concatenate(
-            [np.where(prim_type == t)[0] for t in (0, 1, 2)]
-            + [np.where(prim_type < 0)[0]]
-        )
+        type_perm, type_counts = type_partition(prim_type)
         scene = Scene(
-            type_perm=tuple(int(i) for i in order),
-            type_counts=tuple(int((prim_type == t).sum()) for t in (0, 1, 2)),
+            type_perm=type_perm,
+            type_counts=type_counts,
             prim_type=torch.from_numpy(prim_type).to(dev),
             center=arr("center", dim=3),
             radius=arr("radius"),

@@ -117,9 +117,11 @@ _I = ctypes.c_int
 
 # argument types of each C entry point (csrc/*.cu, extern "C")
 _SIGNATURES = {
-    # o3 d3 thru3 pix samp | geom ts trt | n_alive amask | out_f out_o hits aux |
-    # R n_s n_p n_c n_rep n_pad depth start_bounce seed | stream
-    "poca_mega_trace": [_P] * 11 + [_P] * 3 + [_P] * 2 + [_P] * 4 + [_I] * 9 + [_P],
+    # o3 d3 thru3 pix samp | geom ts trt | n_alive amask | out_f out_o hits aux counter
+    # stats | R n_s n_p n_c n_rep n_pad depth start_bounce seed | stream
+    "poca_mega_trace": [_P] * 11 + [_P] * 3 + [_P] * 2 + [_P] * 6 + [_I] * 9 + [_P],
+    # aux R n_rep n_pad | info (registers, local bytes, blocks per SM, grid)
+    "poca_mega_info": [_I] * 4 + [_P],
     # device | the opt-in shared memory per block
     "poca_smem_optin": [_I, _P],
     # missed planes(ptr array) n_planes out stride offs n_alive status R | stream
@@ -134,6 +136,8 @@ _SIGNATURES = {
     "poca_mega_bwd_info": [_I] * 2 + [_P],
     # o3 d3 tmin tmax geom | out | R n_s n_p n_c n_rep | stream
     "poca_winner_index": [_P] * 9 + [_P] + [_I] * 5 + [_P],
+    # R n_rep | info (registers, local bytes, blocks per SM, grid)
+    "poca_winner_info": [_I] * 2 + [_P],
     # o3 d3 tmin tmax nodes leaves rows gidx | out | R m n_leaves | stream
     "poca_bvh_winner_index": [_P] * 12 + [_P] + [_I] * 3 + [_P],
     # m n_leaves | info (registers, local bytes, blocks per SM, nodes in shared memory)

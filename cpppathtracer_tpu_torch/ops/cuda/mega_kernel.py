@@ -81,7 +81,7 @@ def _outputs(out_f, out_o, hits, depth, with_o, aux=None):
 
 def mega_trace(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts, depth,
                start_bounce=0, with_o=False, thru=None, n_alive=None,
-               alive_mask=None, with_aux=False):
+               alive_mask=None, with_aux=False, stats=None):
     """Run `depth` bounces for planar rays (o, d: tuples of f32[R]).
 
     pixel_idx, sample_idx i32[R]; seed an int; geom f32[N_rep, 8]
@@ -101,7 +101,10 @@ def mega_trace(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts, dept
 
     CUDA tensors launch ``csrc/mega_trace.cu``; CPU tensors take
     :func:`mega_trace_plain`.  A scene whose rows and tables exceed the
-    card's shared memory per block raises ValueError.
+    card's shared memory per block raises ValueError.  `stats`, an int64
+    tensor of 2 on the card, has the launch add the lane searches it ran
+    for a ray and the warp lane slots its searches took (a measurement,
+    ``chip_smoke.py``); the CPU ignores it.
     """
     if alive_mask is not None and n_alive is None:
         raise ValueError("alive_mask needs n_alive")
@@ -135,10 +138,14 @@ def mega_trace(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts, dept
         kb.require(n_alive, "n_alive", i32, (1,), dev)
     if alive_mask is not None:
         kb.require(alive_mask, "alive_mask", f32, (r,), dev)
+    if stats is not None:
+        kb.require(stats, "stats", torch.int64, (2,), dev)
 
     out_f = torch.empty((14, r), dtype=f32, device=dev)
     out_o = torch.empty((3, r), dtype=f32, device=dev) if with_o else None
-    hits = torch.empty((depth, r), dtype=i32, device=dev)
+    hits_buf = torch.empty((depth * r + 1,), dtype=i32, device=dev)  # word depth * r: the ray counter
+    hits = hits_buf[:depth * r].view(depth, r)
+    counter = hits_buf.data_ptr() + 4 * depth * r
     aux = torch.empty((4 * depth, r), dtype=f32, device=dev) if with_aux else None
     thru_p = [kb.ptr(t) for t in thru] if thru is not None else [None] * 3
     with torch.cuda.device(dev):
@@ -148,6 +155,7 @@ def mega_trace(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts, dept
             geom.data_ptr(), ts.data_ptr(), trt.data_ptr(),
             kb.ptr(n_alive), kb.ptr(alive_mask),
             out_f.data_ptr(), kb.ptr(out_o), hits.data_ptr(), kb.ptr(aux),
+            counter, kb.ptr(stats),
             r, n_s, n_p, n_c, geom.shape[0], n_pad, depth, start_bounce,
             ctypes.c_int32(int(seed) & 0xFFFFFFFF).value,
             kb.stream_handle(pixel_idx),
@@ -160,8 +168,10 @@ def mega_trace(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts, dept
 def mega_trace_plain(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts,
                      depth, start_bounce=0, with_o=False, thru=None, n_alive=None,
                      alive_mask=None, with_aux=False):
-    """Plain PyTorch version of :func:`mega_trace` (same arguments and
-    outputs), on any device."""
+    """Plain PyTorch version of :func:`mega_trace` (same arguments but
+    `stats`, same outputs), on any device.  It runs every bounce of
+    every lane, as the JAX package's loop does; the kernel ends a path at
+    its first miss, which gives the same outputs (``csrc/mega_trace.cu``)."""
     r = pixel_idx.shape[0]
     dev = pixel_idx.device
     zero = torch.zeros((r,), dtype=torch.float32, device=dev)

@@ -47,10 +47,11 @@ class GroupedScene:
 
 
 def group_scene(scene) -> GroupedScene:
-    """Repack a Scene in type-grouped order."""
-    if not scene.type_perm or not scene.type_counts:
-        raise ValueError("scene lacks its type-partition metadata")
-    perm = torch.tensor(scene.type_perm, dtype=torch.int64, device=scene.device)
+    """Repack a Scene in type-grouped order (``Scene.partition``).  The JAX
+    package renders a scene without type metadata through its row-major
+    body; the port groups it here and renders it on the planar path."""
+    type_perm, counts = scene.partition()
+    perm = torch.tensor(type_perm, dtype=torch.int64, device=scene.device)
     g = lambda a: a.index_select(0, perm)
     center = g(scene.center)
     radius = g(scene.radius)
@@ -69,7 +70,7 @@ def group_scene(scene) -> GroupedScene:
     table_r = torch.cat([g(scene.kd), col(g(scene.emission))], dim=1)
     return GroupedScene(
         center=center, radius=radius, y_pos=y_pos, height=height,
-        table_s=table_s, table_r=table_r, counts=tuple(scene.type_counts),
+        table_s=table_s, table_r=table_r, counts=counts,
         bvh_meta=scene.bvh_meta, bvh_aabb=scene.bvh_aabb, bvh_objs=scene.bvh_objs,
         bvh_dims=tuple(scene.bvh_dims), bvh_layout=scene.bvh_layout,
     )

@@ -9,8 +9,9 @@ survive bounce 1, and the survivors are scattered over the pixels, so the
 trace runs bounces [0, 2) on every ray (phase A), packs the survivors to a
 dense prefix (stream_compact; its lanes past n_alive are unspecified and
 never read), runs the later bounces on the packed domain (phase B, whose
-threads past n_alive exit at once) and routes phase B's outputs back to
-their pixels (stream_expand, through the compaction's per-block offsets).
+kernel traces only the first n_alive lanes) and routes phase B's outputs
+back to their pixels (stream_expand, through the compaction's per-block
+offsets).
 RNG keys are per (pixel, sample, bounce), so the traced paths are bitwise
 those of the unsplit trace; radiance differs only in the order of its
 float32 sum.

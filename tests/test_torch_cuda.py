@@ -128,6 +128,81 @@ def test_mega_trace_aux_matches_plain_on_card(dev, r, alive):
         assert bool((c[~active] == 0).all())
 
 
+def _planes(out):
+    """Every plane of a trace: the 14 floats, the hit planes, the aux planes
+    (with_aux) and the final origin (with_o)."""
+    planes = [*out[0], *out[1], *out[2], out[3], *out[4], out[5], *out[6]]
+    planes += [c for pos, att in out[7] or () for c in (*pos, att)]
+    return planes + (list(out[8]) if len(out) > 8 else [])
+
+
+def _same_bits(got, ref):
+    return len(got) == len(ref) and all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_aux", [False, True], ids=["plain_form", "aux"])
+@pytest.mark.parametrize("n_alive", [0, 1, 31, 33, R])
+def test_mega_trace_early_exit_matches_plain_on_card(dev, n_alive, with_aux):
+    """The kernel as it is (blocks of 128 lanes whose warps take rays from
+    a counter, a path ending at its first miss), depth 8 from bounce 0, on
+    2^16 demo primaries (every fourth turned up to the sky) with a random
+    input throughput, 10% of the lanes masked and n_alive in
+    {0, 1, 31, 33, R} (a counter that stops inside the first warp, at a
+    warp's edge, past it, at R): every plane, the final origin and the aux
+    planes included, bitwise equal to the plain version's.  At
+    n_alive = R, paths end at every one of the 8 bounces, and some lanes
+    that ended early carry nonzero aux planes at a later bounce (pos = the
+    ray's origin)."""
+    gs, args = _demo(dev)
+    up = args[2] % 4 == 0
+    d = (args[1][0], torch.where(up, args[1][1].abs(), args[1][1]), args[1][2])
+    args = (args[0], d, *args[2:])
+    g = torch.Generator(device=dev).manual_seed(4)
+    kw = dict(counts=gs.counts, depth=8, with_o=True, with_aux=with_aux,
+              thru=tuple(torch.rand(R, device=dev, generator=g) for _ in range(3)),
+              n_alive=torch.tensor([n_alive], dtype=torch.int32, device=dev),
+              alive_mask=(torch.rand(R, device=dev, generator=g) < 0.1).float())
+    kb.reset_launches()
+    got = mega_trace(*args, **kw)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["mega_trace_aux" if with_aux else "mega_trace"] == 1
+    ref = mega_trace_plain(*args, **kw)
+    assert _same_bits(_planes(got), _planes(ref))
+    if n_alive == R:
+        hits = torch.stack(ref[6])
+        missed = hits < 0
+        first = torch.where(missed.any(0), missed.int().argmax(0), 8)
+        live = (torch.arange(R, device=dev) < n_alive) & (kw["alive_mask"] == 0)
+        assert all(bool(((first == b) & live).any()) for b in range(8))
+        if with_aux:
+            late = torch.stack([ref[7][7][0][k] for k in range(3)]).abs().amax(0)
+            assert bool(((first < 7) & live & (late > 0)).any())
+
+
+@pytest.mark.gpu
+def test_kernels_reset_their_counters_on_card(dev):
+    """mega_trace zeroes its ray counter on the stream before each launch:
+    both forms called twice in a row on one stream, on other inputs the
+    second time, each equal to its plain version bitwise; winner_index the
+    same way."""
+    from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import winner_index, winner_index_plain
+
+    gs, args = _demo(dev)
+    flip = lambda v: tuple(c.flip(0).contiguous() for c in v)
+    args2 = (flip(args[0]), flip(args[1]), args[2].flip(0).contiguous(), args[3], *args[4:])
+    for with_aux in (False, True):
+        kw = dict(counts=gs.counts, depth=4, with_aux=with_aux)
+        first, second = mega_trace(*args, **kw), mega_trace(*args2, **kw)
+        assert _same_bits(_planes(first), _planes(mega_trace_plain(*args, **kw)))
+        assert _same_bits(_planes(second), _planes(mega_trace_plain(*args2, **kw)))
+    geom = build_geom_rows(gs)
+    tmin, tmax = torch.zeros(R, device=dev), torch.full((R,), INF, device=dev)
+    for o, d in ((args[0], args[1]), (args2[0], args2[1])):
+        assert torch.equal(winner_index(gs.counts, o, d, tmin, tmax, geom),
+                           winner_index_plain(gs.counts, o, d, tmin, tmax, geom))
+
+
 def _misaligned(t):
     """A contiguous copy of t that starts 4 bytes past a 16-byte boundary."""
     out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
@@ -462,6 +537,72 @@ def test_winner_index_matches_plain_on_card(dev):
     torch.cuda.synchronize()
     assert kb.LAUNCHES["winner_index"] == 1
     assert torch.equal(got, winner_index_plain(gs.counts, *ray, geom))
+
+
+@pytest.mark.gpu
+def test_winner_index_big_scene_4096_on_card(dev):
+    """The dense winner kernel on big_scene(4096), its main path's scene
+    (4,112 rows, 131 KB of shared memory, one block of 1024 an SM), on
+    256^2 + 7 primaries (the last warp partly masked): bitwise equal to its
+    plain version."""
+    from cpppathtracer_tpu_torch.models.presets import big_scene
+    from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import winner_index, winner_index_plain
+
+    gs = group_scene(big_scene(4096, bvh=False, device=dev))
+    o, d, tmin, tmax = _primaries(dev, 4096, 257)
+    cut = lambda v: tuple(c[:256 * 256 + 7].contiguous() for c in v)
+    ray = (cut(o), cut(d), tmin[:256 * 256 + 7].contiguous(), tmax[:256 * 256 + 7].contiguous())
+    geom = build_geom_rows(gs)
+    got = winner_index(gs.counts, *ray, geom)
+    assert torch.equal(got, winner_index_plain(gs.counts, *ray, geom))
+    assert float((got > 0).float().mean()) > 0.25
+
+
+@pytest.mark.gpu
+def test_winner_index_at_row_limit_on_card(dev):
+    """A scene of exactly 7,264 geometry rows (4,000 spheres, 1 platform and
+    3,256 cylinders: 232,448 bytes, the card's whole opt-in shared memory
+    per block) on 8,192 + 5 random rays through it: bitwise equal to the
+    plain version."""
+    from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import (
+        WINNER_SMEM_MAX, winner_index, winner_index_plain,
+    )
+
+    rng = np.random.RandomState(5)
+    b = SceneBuilder()
+    for _ in range(4000):
+        b.add_sphere(tuple(rng.uniform(-60, 60, 3)), float(rng.uniform(0.3, 2.0)))
+    b.add_platform(-61.0)
+    for _ in range(3256):
+        b.add_cylinder(tuple(rng.uniform(-60, 60, 3)), float(rng.uniform(0.3, 2.0)),
+                       float(rng.uniform(0.5, 4.0)))
+    gs = group_scene(b.build(device=dev, bvh=False))
+    geom = build_geom_rows(gs)
+    assert 32 * geom.shape[0] == WINNER_SMEM_MAX
+    r = 8192 + 5
+    o = rng.uniform(-80, 80, (3, r)).astype(np.float32)
+    d = rng.normal(size=(3, r)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0)
+    f = lambda a: tuple(torch.from_numpy(np.ascontiguousarray(c)).to(dev) for c in a)
+    ray = (f(o), f(d), torch.zeros(r, device=dev), torch.full((r,), INF, device=dev))
+    got = winner_index(gs.counts, *ray, geom)
+    assert torch.equal(got, winner_index_plain(gs.counts, *ray, geom))
+    assert float((got > 0).float().mean()) > 0.25
+
+
+@pytest.mark.gpu
+def test_winner_index_exact_ties_on_card(dev):
+    """Exact t ties (tests/torch_scenes.py's column of overlapping cylinders
+    and stacks of sphere copies) on 2^16 + 3 rays: the dense kernel keeps
+    the plain version's winner, the lowest grouped index."""
+    from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import winner_index, winner_index_plain
+
+    gs = group_scene(tie_scene(dev))
+    ray = tie_rays((1 << 16) + 3, dev)
+    geom = build_geom_rows(gs)
+    got = winner_index(gs.counts, *ray, geom)
+    assert torch.equal(got, winner_index_plain(gs.counts, *ray, geom))
+    assert float((got > 0).float().mean()) > 0.25
 
 
 @pytest.mark.gpu

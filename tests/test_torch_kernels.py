@@ -295,6 +295,69 @@ def test_mega_trace_wrapper_takes_plain_on_cpu(demo_tables):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
 
 
+def _first_miss_run(run, depth):
+    """The outputs of a trace whose lanes stop at their first miss, as
+    ``csrc/mega_trace.cu`` ends a path, made from the plain version's runs
+    cut to each depth (`run(k)`: the trace of depth k): a lane whose first
+    missed bounce is b (the last bounce if none) takes its final outputs,
+    its hit planes [0, b] and its aux planes [0, b] from the run of depth
+    b + 1, -1 for its later hit planes and the missed bounce's aux values
+    for its later aux planes.  Returns (those outputs as a list of planes,
+    the full-depth run's, the lanes stopped before the last bounce)."""
+    runs = [run(k) for k in range(1, depth + 1)]
+    hits = torch.stack(runs[-1][6])
+    missed = hits < 0
+    first = torch.where(missed.any(0), missed.int().argmax(0), depth - 1)
+    planes = lambda out: [*out[0], *out[1], *out[2], out[3], *out[4], out[5], *out[8]]
+    # per_run[k]: planes from the run of depth k + 1; each lane takes its own run's
+    pick = lambda per_run: list(torch.stack([torch.stack(p) for p in per_run])[
+        first, :, torch.arange(first.numel())].T)
+    got = pick([planes(out) for out in runs])
+    for b in range(depth):
+        got += pick([[out[6][b] if b <= k else torch.full_like(hits[0], -1)] for k, out in enumerate(runs)])
+    for b in range(depth):
+        got += pick([[*out[7][min(b, k)][0], out[7][min(b, k)][1]] for k, out in enumerate(runs)])
+    full = runs[-1]
+    ref = planes(full) + list(full[6]) + [c for pos, att in full[7] for c in (*pos, att)]
+    return got, ref, int((first < depth - 1).sum())
+
+
+@pytest.mark.parametrize("phase,depth", [("A", 4), ("A", 8), ("B", 6)])
+def test_mega_trace_plain_stops_at_first_miss(demo_tables, phase, depth):
+    """The kernel's early exit, proven on the plain version: on the demo
+    scene's 64x48 primaries (the bench camera), a lane stopped at its first
+    miss, with -1 for its later hit planes and the missed bounce's aux
+    values for its later aux planes, gives every output plane (the 14
+    floats, the final origin, the hit planes and the 4 x depth aux planes)
+    bitwise equal to the full-depth run's: in phase A, and in phase B
+    (start_bounce 2, a random input throughput, 20% of the lanes masked,
+    n_alive 500 below R)."""
+    _, gs = demo_tables
+    from cpppathtracer_tpu_torch.models.camera import Camera
+
+    r = 64 * 48
+    cam = Camera.make(64, 48, origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0), device="cpu")
+    pix = torch.arange(r, dtype=torch.int32)
+    samp = (pix % 5).to(torch.int32)
+    o, d = cam.ray_gen_planar(pix, samp, 2)
+    o, d = tuple(c.contiguous() for c in o), tuple(c.contiguous() for c in d)
+    ts, trt = build_tables_T(gs)
+    kw = {}
+    if phase == "B":
+        rng = np.random.RandomState(6)
+        kw = dict(start_bounce=2, thru=tuple(_t(rng.uniform(0.1, 1.0, r).astype(np.float32))
+                                            for _ in range(3)),
+                  n_alive=torch.tensor([r - 500], dtype=torch.int32),
+                  alive_mask=_t((rng.uniform(size=r) < 0.2).astype(np.float32)))
+    run = lambda k: mega_trace_plain(o, d, pix, samp, 2, build_geom_rows(gs), ts, trt,
+                                     counts=gs.counts, depth=k, with_o=True, with_aux=True, **kw)
+    got, ref, stopped = _first_miss_run(run, depth)
+    assert stopped >= 0.2 * r  # the sky and the far walls end many paths early
+    assert len(got) == len(ref) == 17 + 5 * depth
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), k
+
+
 # --------------------------------------------------------------- compaction
 
 CHUNK = 1024

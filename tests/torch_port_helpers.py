@@ -28,12 +28,13 @@ def port_sky(sky):
     return convert.sky_from_numpy(np.asarray(sky), device="cpu")
 
 
-def controlled_scene():
-    """The controlled scene of tests/test_mega.py: no grazing tangencies."""
+def controlled_scene(pad_to=None):
+    """The controlled scene of tests/test_mega.py: no grazing tangencies;
+    `pad_to` appends padding objects (prim_type -1)."""
     b = SceneBuilder()
     b.add_platform(0.0, kd=(0.8, 0.8, 0.8))
     b.add_sphere((0.0, 2.0, 0.0), 2.0, kd=(0.7, 0.3, 0.2))
     b.add_sphere((4.5, 1.5, 1.0), 1.5, mat_type=MaterialType.METAL, smoothness=0.8)
     b.add_cylinder((-4.5, 1.5, 0.0), 1.2, 3.0, mat_type=MaterialType.GLASS, ior=1.5)
     b.add_sphere((2.0, 1.0, -3.0), 1.0, kd=(1.0, 0.9, 0.7), emission=2.0)
-    return b.build()
+    return b.build(pad_to=pad_to)
