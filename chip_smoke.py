@@ -22,7 +22,12 @@ PyTorch library yardstick (the walk also per bounce; the walk and the
 backward with their registers and resident blocks per SM; the megakernel
 and the dense winner launch with their registers, blocks launched, lane
 searches against live ray-bounces and their floor under --fmad=false
-beside the bound, in its [kernels] log lines), and prints:
+beside the bound, in its [kernels] log lines), then the user entry points
+and the tile mesh (phase 9: the command
+line's render, progressive, video and invert at the presets' own sizes,
+the interactive loop, a checkpoint round trip, the tiled render of the
+demo scene over every card and over a virtual 2x2 mesh, the sharded loss
+and gradients, a one-rank NCCL group), and prints:
   - the card's name and power limit (nvidia-smi);
   - one JSON line {"kernels": [...]}: beside the keys every kernel has,
     only numbers this run measured, read from the built kernels or had the
@@ -40,6 +45,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -84,6 +90,8 @@ PROG_W, PROG_H = 1280, 720
 FORWARD_KERNELS = ("mega_trace", "stream_compact", "stream_expand")
 TEX_SPP = 4  # samples of the textured render; its training step takes 2
 WF_SPP = 4  # samples of the BVH training step
+TILE_SPP = 4  # samples of the tiled render (phase 9)
+LOSS_SIZE = 256  # width and height of the sharded loss's check (phase 9)
 CAMERA = dict(origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0))
 
 
@@ -914,6 +922,269 @@ def bvh_phase(dev, sky):
     ]
 
 
+def entry_points_phase(dev, card, tmp):
+    """Phase 9: the user entry points and the tile mesh, through the port's public
+    entry points at the presets' own sizes (ROADMAP #16 and #17): the
+    command line's render, progressive, video and invert, the interactive
+    loop, a checkpoint round trip, the tiled render and the sharded loss,
+    and a one-rank NCCL group.  Each item resets the launch counts before
+    it runs and checks them after; each prints its wall time beside the
+    card's name and power limit.  Files go to the directory `tmp`."""
+    import io
+    import logging
+
+    from PIL import Image
+
+    from cpppathtracer_tpu_torch import __main__ as cli
+    from cpppathtracer_tpu_torch.integrator import render_radiance
+    from cpppathtracer_tpu_torch.interactive import run as interactive_run
+    from cpppathtracer_tpu_torch.models.camera import Camera
+    from cpppathtracer_tpu_torch.models.presets import PRESETS
+    from cpppathtracer_tpu_torch.models.scene import demo_scene
+    from cpppathtracer_tpu_torch.ops.cuda import build as kb
+    from cpppathtracer_tpu_torch.ops.denoise import denoise
+    from cpppathtracer_tpu_torch.ops.texture import procedural_sky
+    from cpppathtracer_tpu_torch.parallel import distributed
+    from cpppathtracer_tpu_torch.parallel.mesh import make_tile_mesh
+    from cpppathtracer_tpu_torch.parallel.render import (
+        global_pixel_grid, make_sharded_loss, render_image_sharded,
+    )
+    from cpppathtracer_tpu_torch.renderer import ProgressiveRenderer, RenderConfig, to_rgb8
+    from cpppathtracer_tpu_torch.utils import checkpoint
+    from cpppathtracer_tpu_torch.utils.obs import get_logger
+    from cpppathtracer_tpu_torch.video import orbit_path
+
+    os.environ["POCA_LOG_DIR"] = str(tmp / "logs")  # the command line's log file
+    said = []  # the command line's log lines
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            said.append(record.getMessage())
+
+    get_logger().addHandler(Keep())  # after get_logger has made its own handlers
+    read = lambda p: np.asarray(Image.open(p))
+
+    def heard(pattern):
+        found = [m for m in map(re.compile(pattern).search, said) if m]
+        if not found:
+            raise AssertionError(f"the command line logged no line like {pattern!r}")
+        return float(found[-1].group(1))
+
+    def launched(what, expect, launches, serving=True):
+        missing = [k for k in expect if not launches[k]]
+        if missing or (serving and launches["mega_bwd"]):
+            raise AssertionError(f"{what}: kernels {missing} not launched, or a serving path ran "
+                                 f"the backward: {launches}")
+
+    def cli_run(what, expect, *argv, serving=True):
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        t0 = time.perf_counter()
+        cli.main(list(argv))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(kb.LAUNCHES)
+        launched(what, expect, launches, serving)
+        log(f"[entry] {what}: command {dt * 1e3:.1f} ms wall (scene build and sky load "
+            f"included), launches {launches}; {card}")
+
+    def direct_rgb8(scene, cam, sky, spp, depth, seed):
+        with torch.no_grad():
+            rad, n0, t0 = render_radiance(scene, cam, sky, spp=spp, max_depth=depth, seed=seed)
+        h, w = cam.height, cam.width
+        return to_rgb8(denoise(rad.reshape(h, w, 3), n0.reshape(h, w, 3), t0.reshape(h, w)))
+
+    sky_asset = cli._load_sky(None, dev)
+
+    def preset(name):
+        pre = PRESETS[name]
+        scene, cam = pre.build(device=dev)
+        return pre, scene, cam, f"{cam.width}x{cam.height} x {pre.spp} spp x d{pre.max_depth}"
+
+    # 1. render hundred_objects at the preset's settings (1024^2 x 64 spp x d8): the PNG
+    # equals the direct render bitwise
+    pre, scene, cam, size = preset("hundred_objects")
+    out = tmp / "hundred_objects.png"
+    cli_run(f"render --preset hundred_objects ({size})", FORWARD_KERNELS,
+            "render", "--preset", "hundred_objects", "--out", str(out))
+    img = read(out)
+    same = img.shape == (cam.height, cam.width, 3) and np.array_equal(
+        img, direct_rgb8(scene, cam, sky_asset, pre.spp, pre.max_depth, 0))
+    ms_cmd = heard(r"depth \d+ on \S+ in ([0-9.]+)s") * 1e3
+    log(f"[entry] render PNG {img.shape} bitwise equal to to_rgb8(denoise(render_radiance)) "
+        f"called directly: {same}; the command's own render time {ms_cmd:.1f} ms; {card}")
+    if not same:
+        raise AssertionError("the command line's render differs from the direct render")
+
+    # 2. render thousand_objects (1024 objects: below the 2048 at which a scene gets BVH
+    # tables, so the megakernel path) at the preset's 1024^2 x 16 spp x d8: shape only
+    pre, scene, cam, size = preset("thousand_objects")
+    out = tmp / "thousand_objects.png"
+    cli_run(f"render --preset thousand_objects ({size}, {scene.num_objects} objects)",
+            FORWARD_KERNELS, "render", "--preset", "thousand_objects", "--out", str(out))
+    if read(out).shape != (cam.height, cam.width, 3):
+        raise AssertionError("thousand_objects render has the wrong shape")
+
+    # 3. progressive, the demo preset (1280x720 x d8), 16 frames
+    pre, scene, cam, size = preset("demo")
+    out = tmp / "progressive.png"
+    cli_run(f"progressive --preset demo --frames 16 ({size} a frame)", FORWARD_KERNELS,
+            "progressive", "--preset", "demo", "--frames", "16", "--out", str(out))
+    if read(out).shape != (cam.height, cam.width, 3):
+        raise AssertionError("progressive frame has the wrong shape")
+    ms_frame = heard(r"\(([0-9.]+) ms/frame\)")
+    log(f"[entry] progressive: {ms_frame:.3f} ms/frame (16 frames, the command's own clock); "
+        f"{card}")
+
+    # 4. video, material_zoo (512^2 x 16 spp x d8), 24 frames through AsyncFrameSink; frame
+    # 0 equals the direct render of orbit_path(...)[0] with the same seed
+    pre, scene, cam, size = preset("material_zoo")
+    out = tmp / "frames"
+    cli_run(f"video --preset material_zoo --frames 24 ({size})", FORWARD_KERNELS,
+            "video", "--preset", "material_zoo", "--frames", "24", "--out-dir", str(out))
+    names = sorted(os.listdir(out))
+    if names != [f"frame_{i:05d}.png" for i in range(24)]:
+        raise AssertionError(f"video wrote {names}")
+    same = np.array_equal(read(out / names[0]), direct_rgb8(
+        scene, orbit_path(cam, 24)[0], sky_asset, pre.spp, pre.max_depth, 0))
+    ms_frame = heard(r"\(([0-9.]+) ms/frame\)")
+    log(f"[entry] video: {ms_frame:.3f} ms/frame (24 frames, the command's own clock, PNG "
+        f"writes included); frame 0 bitwise equal to the direct render: {same}; {card}")
+    if not same:
+        raise AssertionError("video frame 0 differs from the direct render")
+
+    # 5. invert at its defaults (material_zoo, 128^2 x 4 spp x d4, 100 steps), then the
+    # cornell recipe (24^2 x 1 spp x d2, 30 steps), whose loss must fall 10x
+    def fitted(out_dir):
+        rows = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+        return [r["loss"] for r in rows], [r["t"] for r in rows]
+
+    out = tmp / "inverse_out"
+    cli_run("invert (material_zoo, 128^2 x 4 spp x d4, 100 steps)", FORWARD_KERNELS + ("mega_bwd",),
+            "invert", "--out-dir", str(out), serving=False)
+    losses, stamps = fitted(out)
+    ms_step = (stamps[-1] - stamps[0]) * 1e3 / (len(stamps) - 1)
+    log(f"[entry] invert: {ms_step:.3f} ms/step over {len(losses)} steps (metrics.jsonl "
+        f"stamps), loss {losses[0]:.4e} -> {losses[-1]:.4e}; {card}")
+    out = tmp / "inverse_cornell"
+    cli_run("invert --preset cornell --res 24 --spp 1 --depth 2 --steps 30",
+            ("mega_trace", "mega_bwd"), "invert", "--preset", "cornell", "--res", "24", "--spp", "1",
+            "--depth", "2", "--steps", "30", "--out-dir", str(out), serving=False)
+    losses, _ = fitted(out)
+    log(f"[entry] invert cornell: loss {losses[0]:.4e} -> {losses[-1]:.4e} "
+        f"({losses[0] / losses[-1]:.1f}x)")
+    if not (len(losses) == 30 and losses[-1] * 10 <= losses[0]):
+        raise AssertionError("the cornell fit did not lower its loss tenfold")
+
+    # 6. the interactive loop on demo at 128x72, depth 6, driven by a scripted key list
+    keys = ["w", "i", "j", "+", "r", "d", "l", "-", "q", "s"]
+    _, scene, cam, _ = preset("demo")
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    screen = io.StringIO()
+    frames = interactive_run(scene, cam.resize(128, 72), sky_asset, max_depth=6,
+                             key_source=iter(keys), out=screen)
+    dt = time.perf_counter() - t0
+    launched("interactive", FORWARD_KERNELS, dict(kb.LAUNCHES))
+    log(f"[entry] interactive: {frames} frames for {len(keys)} keys in {dt * 1e3:.1f} ms, "
+        f"{screen.getvalue().count(chr(0x2580))} half-block cells; {card}")
+    if frames != len(keys) + 1:
+        raise AssertionError(f"interactive rendered {frames} frames for {len(keys)} keys")
+
+    # 7. checkpoint round trip: 8 progressive demo frames, save, restore into a fresh
+    # renderer, one more frame from each
+    cfg = RenderConfig(width=cam.width, height=cam.height, max_depth=8)
+    prog = ProgressiveRenderer(scene, cam, sky_asset, cfg)
+    for _ in range(8):
+        prog.step()
+    path = str(tmp / "accumulator.npz")
+    checkpoint.save(path, prog.state, {"frames": 8})
+    fresh = ProgressiveRenderer(scene, cam, sky_asset, cfg)
+    fresh.state, meta = checkpoint.restore(path, fresh.state)
+    same = (torch.equal(prog.step(), fresh.step()) and fresh.state.sample_idx == 9
+            and meta == {"frames": 8})
+    log(f"[entry] checkpoint: 8 frames saved and restored, frame 9 bitwise equal: {same}")
+    if not same:
+        raise AssertionError("a restored accumulator did not continue bitwise")
+
+    # 8. the tiled render of demo_scene(0), 1024^2 x 4 spp x d8, over every visible card
+    # and, with one card, over a virtual 2x2 mesh on it: bitwise equal to the unsharded
+    scene = demo_scene(0).build(device=dev)
+    cam = Camera.make(W, H, device=dev, **CAMERA)
+    sky = torch.from_numpy(procedural_sky(256, 256)).to(dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    with torch.no_grad():
+        render_radiance(scene, cam, sky, spp=1, max_depth=DEPTH, seed=0)  # warm-up
+        (rad, n0, t0_buf), ms_one = timed(lambda: render_radiance(
+            scene, cam, sky, spp=TILE_SPP, max_depth=DEPTH, seed=0))
+    whole = (rad.reshape(H, W, 3), n0.reshape(H, W, 3), t0_buf.reshape(H, W))
+    meshes = [("every card", make_tile_mesh())]
+    if torch.cuda.device_count() == 1:
+        meshes.append(("virtual 2x2 on one card", make_tile_mesh([dev] * 4)))
+    for what, mesh in meshes:
+        render_image_sharded(scene, cam, sky, mesh, spp=1, max_depth=DEPTH, seed=0)  # warm-up
+        kb.reset_launches()
+        tiled, ms_tiled = timed(lambda: render_image_sharded(scene, cam, sky, mesh, spp=TILE_SPP,
+                                                             max_depth=DEPTH, seed=0))
+        launched(f"tiled render ({what})", FORWARD_KERNELS, dict(kb.LAUNCHES))
+        same = all(torch.equal(a, b) for a, b in zip(tiled, whole))
+        log(f"[entry] tiled render {W}x{H} x {TILE_SPP} spp x d{DEPTH}, {what} "
+            f"(mesh {mesh.shape}): {ms_tiled:.1f} ms against the unsharded {ms_one:.1f} ms, "
+            f"bitwise equal {same}, launches {dict(kb.LAUNCHES)}; {card}")
+        if not same:
+            raise AssertionError(f"the tiled render ({what}) differs from the unsharded render")
+
+    # 9. the sharded loss and its kd / emission gradients at 256^2 x 1 spp x d4 against the
+    # single-device ones (the tolerances of tests/test_inverse.py:80-81)
+    mesh = meshes[-1][1]
+    small = cam.resize(LOSS_SIZE, LOSS_SIZE)
+    target = torch.full((LOSS_SIZE * LOSS_SIZE, 3), 0.25, device=dev)
+
+    def leaves():
+        full = scene.material_params()
+        return {k: full[k].detach().clone().requires_grad_(True) for k in ("kd", "emission")}
+
+    p1 = leaves()
+    kb.reset_launches()
+    rad1, _, _ = render_radiance(scene.with_material_params(p1), small, sky, spp=1, max_depth=4,
+                                 seed=0)
+    l1 = torch.mean((rad1 - target) ** 2)
+    g1 = torch.autograd.grad(l1, list(p1.values()))
+    p2 = leaves()
+    pix = global_pixel_grid(small, mesh)
+    l2 = make_sharded_loss(mesh, 1, 4, 0)(p2, scene, small, sky, pix,
+                                          target.reshape(LOSS_SIZE, LOSS_SIZE, 3))
+    g2 = torch.autograd.grad(l2, list(p2.values()))
+    launched("sharded loss", ("mega_trace", "mega_bwd"), dict(kb.LAUNCHES), serving=False)
+    ok = bool(torch.allclose(l2, l1, rtol=1e-5, atol=0.0)) and all(
+        bool(torch.allclose(b, a, rtol=1e-4, atol=1e-7)) for a, b in zip(g1, g2))
+    err = max(float((b - a).abs().max()) for a, b in zip(g1, g2))
+    log(f"[entry] sharded loss over mesh {mesh.shape}: {float(l2.detach()):.8e} against "
+        f"{float(l1.detach()):.8e}, gradients max |diff| {err:.3e}, within rtol 1e-5 / 1e-4: {ok}")
+    if not ok:
+        raise AssertionError("the sharded loss or its gradients differ from the single-device ones")
+
+    # 10. a one-rank NCCL group: gather_frame of the tiled render equals the local frame
+    distributed.initialize(f"file://{tmp / 'rendezvous'}", 1, 0)
+    try:
+        backend = torch.distributed.get_backend()
+        gathered = distributed.gather_frame(tiled[0])
+    finally:
+        distributed.shutdown()
+    same = gathered is not None and np.array_equal(gathered, tiled[0].cpu().numpy())
+    log(f"[entry] one-rank {backend} group: gather_frame equal to the local frame {same}, "
+        f"torn down {not torch.distributed.is_initialized()}")
+    if not same or backend != "nccl" or torch.distributed.is_initialized():
+        raise AssertionError("gather_frame through a one-rank NCCL group failed")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -1284,6 +1555,9 @@ def main():
                               work_a + work_b, floor_mega * 1e3)
     # ---- phase 8: BVH scenes through the per-bounce wavefront path, and its training step
     kernels += bvh_phase(dev, sky)
+    # ---- phase 9: the entry points (command line, video, interactive, checkpoint), tile mesh
+    with tempfile.TemporaryDirectory(prefix="poca_entry_") as tmp:
+        entry_points_phase(dev, card, Path(tmp))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

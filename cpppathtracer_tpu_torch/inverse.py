@@ -4,8 +4,8 @@ target image by gradient descent through the differentiable render
 
 The train step is render -> L2 loss -> backward -> Adam update, with Adam
 at optax's defaults (betas 0.9 / 0.999, eps 1e-8 added to the root of the
-second moment).  The pixel-tile sharded step waits for the multi-device
-slice of the port.
+second moment).  :func:`make_sharded_train_step` is the same step over a
+pixel-tile mesh (``parallel/render.py``).
 """
 
 from __future__ import annotations
@@ -13,8 +13,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from cpppathtracer_tpu_torch.integrator import render_radiance
+from cpppathtracer_tpu_torch.parallel.distributed import process_rows, world
+from cpppathtracer_tpu_torch.parallel.render import global_pixel_grid, make_sharded_loss
 
 
 @dataclasses.dataclass
@@ -67,15 +70,22 @@ def make_train_step(camera, cfg: InverseConfig):
         return params, opt, loss.detach()
 
     def init(scene, sky_tex):
-        full = scene.material_params()
-        params = {k: full[k].detach().clone().requires_grad_(True) for k in cfg.fields}
+        params = _leaf_params(scene, cfg)
         if cfg.optimize_sky:
             params["sky"] = sky_tex.detach().clone().requires_grad_(True)
-        opt = torch.optim.Adam(list(params.values()), lr=cfg.learning_rate,
-                               betas=(0.9, 0.999), eps=1e-8)
-        return params, opt
+        return params, _adam(params, cfg)
 
     return init, train_step
+
+
+def _leaf_params(scene, cfg: InverseConfig):
+    full = scene.material_params()
+    return {k: full[k].detach().clone().requires_grad_(True) for k in cfg.fields}
+
+
+def _adam(params, cfg: InverseConfig):
+    return torch.optim.Adam(list(params.values()), lr=cfg.learning_rate,
+                            betas=(0.9, 0.999), eps=1e-8)
 
 
 def fit(scene, camera, sky_tex, target, cfg: InverseConfig, steps: int = 100, callback=None):
@@ -92,3 +102,45 @@ def fit(scene, camera, sky_tex, target, cfg: InverseConfig, steps: int = 100, ca
             callback(step, losses[-1], params)
     mat = {k: v.detach() for k, v in params.items() if k != "sky"}
     return scene.with_material_params({**scene.material_params(), **mat}), losses
+
+
+def make_sharded_train_step(mesh, camera, cfg: InverseConfig):
+    """The train step over a pixel-tile mesh: the tiles' loss
+    (``parallel.render.make_sharded_loss``), its backward, and Adam on
+    parameters and optimizer state that every process holds whole.
+
+    Returns (init, train_step): `init(scene, target_image)` gives (params,
+    opt, pix, target), pix the global pixel grid of this process's rows and
+    target those rows of the f32[H*W, 3] (or [H, W, 3]) image, both padded
+    to the mesh tiling; `train_step(params, opt, scene, sky_tex, pix,
+    target)` updates params and opt in place and returns (params, opt,
+    loss), the loss of the parameters before the update.  With a
+    ``torch.distributed`` group of more than one process each process
+    renders its own rows, and the loss and the parameter gradients are
+    all-reduced before the update, so every process takes the same step.
+    """
+    loss_fn = make_sharded_loss(mesh, cfg.spp, cfg.max_depth, cfg.seed)
+
+    def train_step(params, opt, scene, sky_tex, pix, target):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params, scene, camera, sky_tex, pix, target)
+        loss.backward()
+        loss = loss.detach()
+        if world()[0] > 1:
+            dist.all_reduce(loss)
+            for p in params.values():
+                dist.all_reduce(p.grad)
+        opt.step()
+        return params, opt, loss
+
+    def init(scene, target_image):
+        params = _leaf_params(scene, cfg)
+        lo, hi = process_rows(camera.height)
+        pix = global_pixel_grid(camera, mesh, (lo, hi))
+        h, w = camera.height, camera.width
+        image = torch.as_tensor(target_image, dtype=torch.float32).reshape(h, w, 3)
+        tgt = torch.zeros((*pix.shape, 3), dtype=torch.float32, device=pix.device)
+        tgt[:hi - lo, :w] = image[lo:hi].to(pix.device)
+        return params, _adam(params, cfg), pix, tgt
+
+    return init, train_step

@@ -617,3 +617,46 @@ def test_winner_index_refuses_rows_beyond_shared_memory(dev):
     with pytest.raises(ValueError, match=str(WINNER_SMEM_MAX)):
         winner_index((n, 0, 0), *ray, torch.zeros((n, 8), device=dev))
     assert kb.LAUNCHES["winner_index"] == 0
+
+
+@pytest.mark.gpu
+def test_sharded_render_virtual_mesh_bitwise_on_card(dev):
+    """The demo scene at 192x135 (a mesh that pads the rows), 2 spp, depth
+    6, tiled over a virtual 2x2 mesh on one card: bitwise equal to the
+    unsharded render, through the kernels (the ray counter and the
+    compaction reorder lanes, not arithmetic)."""
+    from cpppathtracer_tpu_torch.integrator import render_radiance
+    from cpppathtracer_tpu_torch.ops.texture import procedural_sky
+    from cpppathtracer_tpu_torch.parallel.mesh import make_tile_mesh
+    from cpppathtracer_tpu_torch.parallel.render import render_image_sharded
+
+    scene = demo_scene(0).build(device=dev)
+    cam = Camera.make(192, 135, origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0), device=dev)
+    sky = torch.from_numpy(procedural_sky(64, 64)).to(dev)
+    mesh = make_tile_mesh([dev] * 4)
+    kb.reset_launches()
+    got = render_image_sharded(scene, cam, sky, mesh, spp=2, max_depth=6, seed=3)
+    assert kb.LAUNCHES["mega_trace"] == 2 * 2 * 4  # phase A and B, 2 samples, 4 tiles
+    with torch.no_grad():
+        rad, n0, t0 = render_radiance(scene, cam, sky, spp=2, max_depth=6, seed=3)
+    for a, b in zip(got, (rad.reshape(135, 192, 3), n0.reshape(135, 192, 3), t0.reshape(135, 192))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_frame_sink_writes_cuda_frames(dev, tmp_path):
+    """AsyncFrameSink takes uint8 frames on the card; each PNG holds the
+    frame's bytes, equal to to_rgb8 of its float frame."""
+    from PIL import Image
+
+    from cpppathtracer_tpu_torch.renderer import to_rgb8
+    from cpppathtracer_tpu_torch.video import AsyncFrameSink
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    frames = [torch.rand((64, 96, 3), device=dev, generator=g) * 1.2 - 0.1 for _ in range(12)]
+    sink = AsyncFrameSink(str(tmp_path))
+    for i, f in enumerate(frames):
+        sink.put(i, (255.99 * torch.clamp(f, 0.0, 1.0)).to(torch.uint8))
+    sink.close()
+    for i, f in enumerate(frames):
+        np.testing.assert_array_equal(np.asarray(Image.open(sink.path(i))), to_rgb8(f))
