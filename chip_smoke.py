@@ -27,7 +27,15 @@ and the tile mesh (phase 9: the command
 line's render, progressive, video and invert at the presets' own sizes,
 the interactive loop, a checkpoint round trip, the tiled render of the
 demo scene over every card and over a virtual 2x2 mesh, the sharded loss
-and gradients, a one-rank NCCL group), and prints:
+and gradients, a one-rank NCCL group), then the row-major body and the
+stack BVH (phase 10: route A, the demo scene at 1024^2 x 4 spp x depth 8
+under POCA_MEGA=0 POCA_PLANAR=0, one winner_index launch a bounce, held
+against _winner_grouped_T (winner_index_plain's index) and the planar
+wavefront render; route B, the demo scene without type metadata through the dense
+intersect, flat and 2-D; a route A training step against the planar
+wavefront's gradients; the stack BVH of big_scene(16384): native against
+NumPy build, intersect_bvh against the skip-pointer walk, refit against a
+rebuild), and prints:
   - the card's name and power limit (nvidia-smi);
   - one JSON line {"kernels": [...]}: beside the keys every kernel has,
     only numbers this run measured, read from the built kernels or had the
@@ -40,6 +48,7 @@ card it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -91,6 +100,8 @@ FORWARD_KERNELS = ("mega_trace", "stream_compact", "stream_expand")
 TEX_SPP = 4  # samples of the textured render; its training step takes 2
 WF_SPP = 4  # samples of the BVH training step
 TILE_SPP = 4  # samples of the tiled render (phase 9)
+RM_SPP = 4  # samples of route A's render (phase 10)
+RM_ROWS = 256  # rows of route B's 2-D pixel batch (phase 10)
 LOSS_SIZE = 256  # width and height of the sharded loss's check (phase 9)
 CAMERA = dict(origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0))
 
@@ -322,6 +333,27 @@ def record_bvh_rays(calls):
         yield
     finally:
         fast.bvh_winner_index = real
+
+
+@contextlib.contextmanager
+def record_rowmajor_rays(calls):
+    """Keep a copy of the rays of every row-major winner launch
+    (``fast.winner_index_rowmajor``; its launches still count)."""
+    from cpppathtracer_tpu_torch.ops import fast
+    from cpppathtracer_tpu_torch.types import Rays
+
+    real = fast.winner_index_rowmajor
+
+    def recording(gs, rays):
+        calls.append(Rays(*(t.detach().clone() for t in (rays.origin, rays.dir, rays.tmin,
+                                                          rays.tmax))))
+        return real(gs, rays)
+
+    fast.winner_index_rowmajor = recording
+    try:
+        yield
+    finally:
+        fast.winner_index_rowmajor = real
 
 
 def bvh_ops():
@@ -920,6 +952,247 @@ def bvh_phase(dev, sky):
              bound_ms=max(ops_ws, bytes_ws) * 1e3, bound_by=by(ops_ws, bytes_ws), library_ms=None,
              registers=regs_w, local_bytes=local_w, blocks_per_sm=per_sm_w),
     ]
+
+
+def rowmajor_phase(dev, sky):
+    """Phase 10, the row-major body and the stack BVH.  Route A: the demo
+    scene under POCA_MEGA=0 POCA_PLANAR=0 (winner_index once a bounce from
+    fast.intersect_and_gather), checked against _winner_grouped_T
+    (winner_index_plain's index) and the planar wavefront render; route B: the demo
+    scene without type metadata (the dense intersect, no kernel), flat and
+    2-D; a training step on route A against the planar wavefront's
+    gradients; the stack BVH of big_scene(16384): native and NumPy builds,
+    intersect_bvh against the skip-pointer walk (#7), refit against a
+    rebuild.  Returns route A's keys for the winner_index row."""
+    from cpppathtracer_tpu_torch.integrator import render_radiance, render_sample
+    from cpppathtracer_tpu_torch.models.camera import Camera
+    from cpppathtracer_tpu_torch.models.presets import big_camera, big_scene
+    from cpppathtracer_tpu_torch.models.scene import demo_scene
+    from cpppathtracer_tpu_torch.ops import bvh, fast
+    from cpppathtracer_tpu_torch.ops.cuda import build as kb
+    from cpppathtracer_tpu_torch.ops.cuda.bvh_kernel import bvh_winner_index
+    from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import (
+        build_geom_rows, winner_index, winner_index_plain,
+    )
+    from cpppathtracer_tpu_torch.ops.planar import gather_epilogue_p
+    from cpppathtracer_tpu_torch.types import INF
+    from cpppathtracer_tpu_torch.utils import native
+
+    r = W * H
+    scene = demo_scene(0).build(device=dev)
+    camera = Camera.make(W, H, device=dev, **CAMERA)
+    gs = fast.group_scene(scene)
+    geom = build_geom_rows(gs)
+    zero_launches = {k: 0 for k in kb.LAUNCHES}
+
+    def timed_render(spp, **switches):
+        """A warm render (a 1-spp warm-up first) under `switches`:
+        (outputs, seconds, launches of the timed call)."""
+        with torch.no_grad(), env(**switches):
+            render_radiance(scene, camera, sky, spp=1, max_depth=DEPTH, seed=0)
+            torch.cuda.synchronize()
+            kb.reset_launches()
+            t0 = time.perf_counter()
+            out = render_radiance(scene, camera, sky, spp=spp, max_depth=DEPTH, seed=0)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, dict(kb.LAUNCHES)
+
+    # 1. route A, 1024^2 x 4 spp x d8, and the planar wavefront render beside it
+    calls = []
+    with torch.no_grad(), env(POCA_MEGA="0", POCA_PLANAR="0"), record_rowmajor_rays(calls):
+        render_radiance(scene, camera, sky, spp=1, max_depth=DEPTH, seed=0)
+    (rad_a, n_a, t_a), dt_a, launches_a = timed_render(RM_SPP, POCA_MEGA="0", POCA_PLANAR="0")
+    if launches_a != dict(zero_launches, winner_index=RM_SPP * DEPTH):
+        raise AssertionError(f"route A launched {launches_a}, expected {RM_SPP * DEPTH} winner_index")
+    if not (torch.isfinite(rad_a).all() and rad_a.shape == (r, 3) and torch.isfinite(n_a).all()):
+        raise AssertionError("route A's output is not finite or has the wrong shape")
+    (rad_p, n_p, t_p), dt_p, launches_p = timed_render(RM_SPP, POCA_MEGA="0")
+    share_ap = float(torch.isclose(rad_a, rad_p, rtol=0, atol=1e-4).all(-1).float().mean())
+    t_same, n_same = torch.equal(t_a, t_p), torch.equal(n_a, n_p)
+    log(f"[rowmajor] route A, demo_scene(0) 1024^2 x {RM_SPP} spp x d{DEPTH} under POCA_MEGA=0 "
+        f"POCA_PLANAR=0: {dt_a * 1e3 / RM_SPP:.3f} ms/sample ({r * RM_SPP * DEPTH / dt_a / 1e6:.1f} "
+        f"Mrays/s), launches {launches_a}; the planar wavefront (POCA_MEGA=0) "
+        f"{dt_p * 1e3 / RM_SPP:.3f} ms/sample, launches {launches_p}; {share_ap:.6f} of pixels "
+        f"within 1e-4 of it, mean radiance {float(rad_a.mean()):.5f} / {float(rad_p.mean()):.5f}")
+    log(f"[rowmajor] route A vs planar first hits: t bitwise equal {t_same} (max |diff| "
+        f"{float((t_a - t_p).abs().max()):.3g}), normals bitwise equal {n_same} (max |diff| "
+        f"{float((n_a - n_p).abs().max()):.3g}; the row-major attributes divide (p - c) by the "
+        f"radius, as JAX's row-major body does, the planar ones multiply by its reciprocal, as "
+        f"JAX's planar body does)")
+    if share_ap < 0.995:
+        raise AssertionError("route A disagrees with the planar wavefront render")
+    with torch.no_grad(), env(POCA_MEGA="0", POCA_PLANAR="0"):
+        profile_device(lambda: render_radiance(scene, camera, sky, spp=1, max_depth=DEPTH, seed=0),
+                       "route A, 1 sample")
+
+    # 2. the launch on the recorded row-major rays of sample 0 against _winner_grouped_T, the
+    # plain search whose index is winner_index_plain's: bounce 0 (primaries) and bounce 1
+    for b in (0, 1):
+        rays = calls[b]
+        got = fast.winner_index_rowmajor(gs, rays)
+        t_g, ref = fast._winner_grouped_T(gs, rays)
+        n_diff = int((got != ref).sum())
+        log(f"[check] winner_index on the row-major rays of bounce {b} (1024^2) against "
+            f"_winner_grouped_T (winner_index_plain): differs on {n_diff} lanes, so on no exact "
+            f"tie either (the kernel repeats the plain arithmetic and tie-break, so it is held "
+            f"bitwise); {float((t_g < INF).float().mean()):.4f} of lanes hit")
+        if n_diff:
+            raise AssertionError(f"the row-major winner launch disagrees at bounce {b}")
+    rays1 = calls[1]
+    planes1 = fast._ray_planes(*fast._planes_of(rays1))
+    ms_rm = time_ms(lambda: fast.winner_index_rowmajor(gs, rays1), iters=10)
+    ms_k = time_ms(lambda: winner_index(gs.counts, *planes1, geom), iters=10)
+    ms_copy = time_ms(lambda: fast._ray_planes(*fast._planes_of(rays1)), iters=10)
+    plain_rm = time_ms(lambda: winner_index_plain(gs.counts, *planes1, geom), iters=2, warmup=1)
+    n_s, n_p, n_c = gs.counts
+    ops_rm = r * (OPS_SPHERE * n_s + OPS_PLATFORM * n_p + OPS_CYLINDER * n_c)
+    bytes_rm = r * 4 * (8 + 1) + geom.numel() * 4
+    ops_s, bytes_s = ops_rm / FP32_OPS_PER_S, bytes_rm / HBM_BYTES_PER_S
+    bound_rm = max(ops_s, bytes_s) * 1e3
+    log(f"[kernels] winner_index on route A's bounce-1 rays: {ms_rm:.4f} ms a launch with the "
+        f"copy of the strided planes ({ms_copy:.4f} ms of it), the kernel alone {ms_k:.4f} ms, "
+        f"plain {plain_rm:.2f} ms; bound {bound_rm:.4f} ms ({ops_rm:.4g} ops {ops_s * 1e3:.4f} ms; "
+        f"{bytes_rm / 1e6:.1f} MB {bytes_s * 1e3:.4f} ms)")
+
+    # 3. route B: the same scene without type metadata, 1024^2 x 1 spp x d8, and a 2-D batch
+    bare = dataclasses.replace(scene, type_perm=(), type_counts=())
+    with torch.no_grad():
+        grouped, _, _ = render_radiance(scene, camera, sky, spp=1, max_depth=DEPTH, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kb.reset_launches()
+        t0 = time.perf_counter()
+        rad_b, n_b, t_b = render_radiance(bare, camera, sky, spp=1, max_depth=DEPTH, seed=0)
+        torch.cuda.synchronize()
+        dt_b = time.perf_counter() - t0
+        launches_b = dict(kb.LAUNCHES)
+        peak_b = torch.cuda.max_memory_allocated() / 2**30
+        pix2 = torch.arange(RM_ROWS * W, dtype=torch.int32, device=dev)
+        flat = render_sample(bare, camera, sky, pix2, 0, 0, DEPTH)
+        two_d = render_sample(bare, camera, sky, pix2.reshape(RM_ROWS, W), 0, 0, DEPTH)
+        profile_device(lambda: render_radiance(bare, camera, sky, spp=1, max_depth=DEPTH, seed=0),
+                       "route B, 1 sample")
+    if launches_b != zero_launches:
+        raise AssertionError(f"route B launched {launches_b}")
+    if not (torch.isfinite(rad_b).all() and rad_b.shape == (r, 3)):
+        raise AssertionError("route B's output is not finite or has the wrong shape")
+    shapes_ok = (two_d[0].shape == (RM_ROWS, W, 3) and two_d[1].shape == (RM_ROWS, W, 3)
+                 and two_d[2].shape == (RM_ROWS, W))
+    same_2d = shapes_ok and all(torch.equal(a.reshape(b.shape), b) for a, b in zip(two_d, flat))
+    share_b = float(torch.isclose(rad_b, grouped, rtol=0, atol=1e-4).all(-1).float().mean())
+    log(f"[rowmajor] route B, demo_scene(0) without type metadata, 1024^2 x 1 spp x d{DEPTH} "
+        f"(dense intersect over {scene.num_objects} objects): {dt_b * 1e3:.1f} ms/sample, peak "
+        f"memory {peak_b:.2f} GiB, launches {launches_b}; {share_b:.6f} of pixels within 1e-4 of "
+        f"the grouped (megakernel) render; a {RM_ROWS}x{W} pixel batch gives shapes "
+        f"{[tuple(a.shape) for a in two_d]}, equal to the flat render reshaped: {same_2d}")
+    # the grouped render's search expands the quadratics (|o|^2 - 2 o.c + |c|^2 - r^2) and
+    # breaks ties in the grouped order, the dense intersect does neither: some secondary
+    # rays take another turn (98.2% of pixels within 1e-4 at 64^2 on the CPU)
+    if not same_2d or share_b < 0.95:
+        raise AssertionError("route B's 2-D batch or its agreement with the grouped render fails")
+
+    # 4. training on route A: bench.py's loss at 256^2 x 1 spp x d4 against the planar
+    # wavefront's (on the CPU at 64^2: cosine 0.99999992, norm ratios within 1e-5 of 1)
+    cam256 = Camera.make(256, 256, device=dev, **CAMERA)
+    grads = {}
+    for name, switches in (("rowmajor", dict(POCA_MEGA="0", POCA_PLANAR="0")),
+                           ("planar", dict(POCA_MEGA="0"))):
+        with env(**switches):
+            loss_grads(scene, cam256, sky, 1, 4)  # warm-up
+            torch.cuda.synchronize()
+            kb.reset_launches()
+            t0 = time.perf_counter()
+            grads[name] = loss_grads(scene, cam256, sky, 1, 4)
+            torch.cuda.synchronize()
+            log(f"[rowmajor train] {name}: fwd+bwd demo_scene(0) 256^2 x 1 spp x d4 "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms/step, launches {dict(kb.LAUNCHES)}, "
+                f"loss {float(grads[name][0]):.6g}")
+    agree = []
+    for i, name in ((1, "kd"), (2, "emission")):
+        cos, ratio = cosine_and_ratio(grads["rowmajor"][i], grads["planar"][i])
+        agree.append(cos > 0.9999 and abs(ratio - 1) < 1e-3)
+        log(f"[rowmajor train] route A vs the planar wavefront, {name} gradient: cosine "
+            f"{cos:.8f}, norm ratio {ratio:.8f}")
+    if not all(agree):
+        raise AssertionError("route A's gradients disagree with the planar wavefront's")
+
+    # 5. the stack BVH of big_scene(16384): the builds, the walk against #7, refit
+    big = big_scene(BVH_N, device=dev)
+    t0 = time.perf_counter()
+    amin, amax = bvh.object_aabbs(bvh.scene_to_np(big))
+    t_aabb = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arrays_np = bvh.build_bvh_numpy(amin, amax)
+    t_np = time.perf_counter() - t0
+    if native.available():
+        t0 = time.perf_counter()
+        arrays_nat = native.build_bvh(amin, amax)
+        t_nat = time.perf_counter() - t0
+        same = all(np.array_equal(arrays_nat[k], arrays_np[k]) for k in arrays_np)
+        log(f"[stack bvh] big_scene({BVH_N}): {len(arrays_np['left'])} nodes; object AABBs "
+            f"{t_aabb * 1e3:.1f} ms; native build {t_nat * 1e3:.2f} ms, NumPy build "
+            f"{t_np * 1e3:.1f} ms, arrays equal {same}; build_bvh takes the native builder")
+        if not same:
+            raise AssertionError("the native and NumPy BVH builds differ")
+    else:
+        log(f"[stack bvh] big_scene({BVH_N}): the native library is unavailable, so build_bvh "
+            f"takes the NumPy builder ({t_np * 1e3:.1f} ms); nothing to compare it with")
+    tree = bvh.build_bvh(big)
+    bcam = big_camera(BVH_N, W, H, device=dev)
+    pix = torch.arange(r, dtype=torch.int32, device=dev)
+    prim = bcam.ray_gen(pix, 0, 0)
+    with torch.no_grad():
+        hit = bvh.intersect_bvh(big, tree, prim)  # warm-up and the result
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, steps = bvh.stack_walk(big, tree, prim.origin, prim.dir, prim.tmin, prim.tmax)
+        torch.cuda.synchronize()
+        ms_walk = (time.perf_counter() - t0) * 1e3
+        ms_stack = time_ms(lambda: bvh.intersect_bvh(big, tree, prim), iters=2, warmup=0)
+        gsb = fast.group_scene(big)
+        o, d = bcam.ray_gen_planar(pix, 0, 0)
+        ray7 = (tuple(c.contiguous() for c in o), tuple(c.contiguous() for c in d), prim.tmin,
+                prim.tmax)
+        tables = (gsb.bvh_meta, gsb.bvh_aabb, gsb.bvh_objs)
+        walk7 = lambda: bvh_winner_index(*ray7, *tables, leaf_size=gsb.bvh_dims[1],
+                                         layout=gsb.bvh_layout)
+        obj7 = gather_epilogue_p(gsb.table_s, gsb.table_r, *ray7, walk7())[0]["obj_idx"]
+        ms7 = time_ms(walk7, iters=5, warmup=1)
+    share7 = float((hit.obj_idx == obj7).float().mean())
+    log(f"[stack bvh] intersect_bvh on the 1024^2 primaries of big_camera({BVH_N}): "
+        f"{ms_stack:.1f} ms a call ({steps} steps of the lock-step loop, one host read each; the "
+        f"walk alone {ms_walk:.1f} ms), the skip-pointer walk (#7) {ms7:.3f} ms; object ids equal "
+        f"to #7's on {share7:.6f} of pixels ({float(hit.hit.float().mean()):.4f} hit)")
+    if share7 < 0.998:
+        raise AssertionError("intersect_bvh disagrees with the skip-pointer walk")
+    g = torch.Generator(device=dev).manual_seed(3)
+    moved = dataclasses.replace(
+        big, center=big.center + (torch.rand(big.center.shape, device=dev, generator=g) - 0.5))
+    t0 = time.perf_counter()
+    refit = bvh.refit_bvh(tree, moved)
+    t_refit = time.perf_counter() - t0
+    rebuilt = bvh.build_bvh(moved)
+    leaf_box = lambda t: {int(i): (a, b) for i, a, b in zip(
+        t.obj_idx.tolist(), t.aabb_min.cpu().numpy(), t.aabb_max.cpu().numpy()) if i >= 0}
+    boxes_r, boxes_b = leaf_box(refit), leaf_box(rebuilt)
+    same_leaves = boxes_r.keys() == boxes_b.keys() and all(
+        np.array_equal(boxes_r[k][0], boxes_b[k][0]) and np.array_equal(boxes_r[k][1], boxes_b[k][1])
+        for k in boxes_r)
+    same_root = (torch.equal(refit.aabb_min[0], rebuilt.aabb_min[0])
+                 and torch.equal(refit.aabb_max[0], rebuilt.aabb_max[0]))
+    sub = torch.arange(0, r, r // SUB, device=dev)
+    sub_rays = type(prim)(prim.origin[sub], prim.dir[sub], prim.tmin[sub], prim.tmax[sub])
+    with torch.no_grad():
+        w_refit = bvh.intersect_bvh(moved, refit, sub_rays).obj_idx
+        w_rebuilt = bvh.intersect_bvh(moved, rebuilt, sub_rays).obj_idx
+    log(f"[stack bvh] refit_bvh after moving every object by up to 0.5: {t_refit * 1e3:.1f} ms; "
+        f"each object's leaf box and the root box equal a rebuild's: {same_leaves}, {same_root}; "
+        f"intersect_bvh winners on {SUB} primaries equal the rebuild's: "
+        f"{torch.equal(w_refit, w_rebuilt)}")
+    if not (same_leaves and same_root and torch.equal(w_refit, w_rebuilt)):
+        raise AssertionError("refit_bvh disagrees with a rebuild")
+    return dict(route_a_launches=launches_a["winner_index"], route_a_ms=ms_rm,
+                route_a_bound_ms=bound_rm)
 
 
 def entry_points_phase(dev, card, tmp):
@@ -1558,6 +1831,9 @@ def main():
     # ---- phase 9: the entry points (command line, video, interactive, checkpoint), tile mesh
     with tempfile.TemporaryDirectory(prefix="poca_entry_") as tmp:
         entry_points_phase(dev, card, Path(tmp))
+    # ---- phase 10: the row-major body (routes A and B) and the stack BVH
+    route_a = rowmajor_phase(dev, sky)
+    next(k for k in kernels if k["name"] == "winner_index").update(route_a)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,7 @@ from cpppathtracer_tpu_torch.types import (
     MAX_RECURSION_DEPTH_SET,
     MaterialType,
     PrimitiveType,
+    Rays,
 )
 from cpppathtracer_tpu_torch.models.camera import Camera
 from cpppathtracer_tpu_torch.models.scene import Scene, SceneBuilder
@@ -26,6 +27,7 @@ __all__ = [
     "MAX_RECURSION_DEPTH_SET",
     "MaterialType",
     "PrimitiveType",
+    "Rays",
     "Camera",
     "Scene",
     "SceneBuilder",

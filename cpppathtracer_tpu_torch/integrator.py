@@ -13,11 +13,20 @@ first-hit normal and t of sample 0 feed the denoiser
 buffer, as the JAX package does).
 
 Which path a render takes is the JAX package's rule
-(`integrator.py:416-424`): a scene with BVH tables takes the wavefront
-path, whose closest hit walks the BVH (``csrc/bvh.cu``); a dense scene
-takes the megakernel (``ops/mega.py``).  POCA_MEGA=0 sends a dense scene
-through the wavefront path with the dense winner kernel
-(``csrc/winner.cu``), and POCA_BVH=0 ignores attached tables.
+(`integrator.py:72-75, 416-424`): a dense grouped scene takes the
+megakernel (``ops/mega.py``); a scene with BVH tables, or any grouped
+scene under POCA_MEGA=0, takes the per-bounce wavefront path, whose
+closest hit walks the BVH (``csrc/bvh.cu``) or runs the dense winner
+kernel (``csrc/winner.cu``); POCA_BVH=0 ignores attached tables.  The
+wavefront path runs the planar body for flat pixel indices; under
+POCA_PLANAR=0 it runs the row-major body (:func:`trace_bounces_rowmajor`,
+JAX `integrator.py:142-192`), whose closest hit is
+``fast.intersect_and_gather`` (the dense winner kernel once a bounce on
+the card, BVH tables or not).  A scene without type metadata
+(``fast.group_scene`` gives None) always takes the row-major body, with
+the dense ``intersect.intersect`` and ``bsdf.gather_materials`` and no
+kernel, for pixel indices of any shape; a grouped scene renders only
+flat pixel indices, as in the JAX package.
 
 Textured albedo (`tex_stack`, f32[T, H, W, 3]; an object's tex_id picks
 its texture, -1 none): the wavefront bounce samples the texture at the
@@ -26,11 +35,12 @@ megakernel path takes the kernel's `with_aux` form and replays the
 radiance recurrence with the textured albedo in
 :func:`_mega_tex_radiance` (JAX `integrator.py:271-333`).
 
-Both paths are differentiable.  The megakernel's backward is
-``ops/mega.py::MegaSample``.  The wavefront path's is
+Every path is differentiable.  The megakernel's backward is
+``ops/mega.py::MegaSample``.  The planar wavefront body's is
 :class:`WavefrontSample`: its forward saves each bounce's winner index,
 and its backward replays the bounces from them without the winner search
-(JAX `integrator.py:194-225, 481-486`).
+(JAX `integrator.py:194-225, 481-486`).  The row-major body's is plain
+autograd: its winner indices are selected without a graph.
 """
 
 from __future__ import annotations
@@ -39,11 +49,11 @@ import os
 
 import torch
 
-from cpppathtracer_tpu_torch.ops import fast, planar, texture
+from cpppathtracer_tpu_torch.ops import bsdf, fast, intersect, mathx, planar, texture
 from cpppathtracer_tpu_torch.ops.mathx import div_const
 from cpppathtracer_tpu_torch.ops.mega import mega_sample
-from cpppathtracer_tpu_torch.ops.uv import surface_uv_p
-from cpppathtracer_tpu_torch.types import INF, TMIN_BOUNCE
+from cpppathtracer_tpu_torch.ops.uv import surface_uv, surface_uv_p
+from cpppathtracer_tpu_torch.types import INF, TMIN_BOUNCE, Rays
 from cpppathtracer_tpu_torch.utils.rng import uniforms4
 
 
@@ -192,6 +202,75 @@ def wavefront_sample(gs, camera, pixel_idx, sample_idx, seed, depth, tex_stack=N
     return out[0:3], out[3:6], out[6:9], out[9], out[10:13], out[13]
 
 
+def trace_bounces_rowmajor(scene, gs, rays, pixel_idx, sample_idx, seed, max_depth: int, *,
+                           tex_stack=None):
+    """Integrate `max_depth` bounces of row-major primary rays (`Rays` of
+    any batch shape) one bounce at a time: the JAX package's
+    `body_rowmajor` (`integrator.py:142-192`).  Each bounce's closest hit
+    is ``fast.intersect_and_gather`` on the grouped scene `gs`, or, where
+    `gs` is None, ``intersect.intersect`` and ``bsdf.gather_materials`` on
+    `scene`.  Differentiable by autograd.
+
+    Returns (radiance f32[..., 3] without the sky, miss direction and miss
+    throughput f32[..., 3], missed bool[...], first_n f32[..., 3],
+    first_t f32[...]); a path that missed keeps its ray, so at the end its
+    direction and throughput are those it missed with."""
+    batch = rays.tmin.shape
+    origin, direction = rays.origin, rays.dir
+    throughput = torch.ones_like(origin)
+    radiance = torch.zeros_like(origin)
+    first_n, first_t = torch.zeros_like(origin), torch.zeros_like(rays.tmin)
+    alive = rays.tmax > 0.0
+    tmax = torch.full(batch, INF, dtype=torch.float32, device=origin.device)
+    for b in range(max_depth):
+        cur = Rays(origin, direction, torch.full_like(tmax, 0.0 if b == 0 else TMIN_BOUNCE), tmax)
+        if gs is not None:
+            hit, mats = fast.intersect_and_gather(gs, cur)
+        else:
+            hit = intersect.intersect(scene, cur)
+            mats = bsdf.gather_materials(scene, hit.obj_idx)
+        u1, u2, u3, _ = uniforms4(seed, pixel_idx, sample_idx, 1 + b)
+        kd_override = None
+        if tex_stack is not None:
+            tid = mats["tex_id"]
+            u, v = surface_uv(*mats["_geom"], hit.pos)
+            kd_tex = torch.zeros_like(mats["kd"])
+            for t in range(tex_stack.shape[0]):
+                kd_tex = torch.where((tid == t)[..., None],
+                                     texture.sample_bilinear(tex_stack[t], u, v), kd_tex)
+            kd_override = torch.where((tid >= 0)[..., None], kd_tex, mats["kd"])
+        # the score-function weight is 1.0 in value: only a graph needs it
+        bounce_dir, attenuation, emitted = bsdf.shade(
+            mats, hit.normal, direction, u1, u2, u3, kd_override=kd_override,
+            score_grad=torch.is_grad_enabled(),
+        )
+        live_hit = (hit.hit & alive)[..., None]
+        radiance = radiance + throughput * emitted * live_hit.to(torch.float32)
+        throughput = torch.where(live_hit, throughput * attenuation, throughput)
+        hit3 = hit.hit[..., None]
+        if b == 0:
+            # the denoiser's first-hit buffers (miss normal = -dir, path_tracer.cu:152)
+            first_n = torch.where(hit3, hit.normal, -direction)
+            first_t = torch.where(hit.hit, hit.t, torch.full_like(hit.t, INF))
+        alive = alive & hit.hit
+        origin = torch.where(hit3, hit.pos, origin)
+        direction = torch.where(hit3, mathx.normalize(bounce_dir), direction)
+    return radiance, direction, throughput, ~alive, first_n, first_t
+
+
+def rowmajor_sample(scene, gs, camera, sky_packed, pixel_idx, sample_idx, seed, depth,
+                    tex_stack=None):
+    """One sample of the row-major body for pixel indices of any shape:
+    (radiance f32[..., 3], first_n f32[..., 3], first_t f32[...]), the sky
+    seen by the escaped paths included (sampled once per path, as on the
+    other paths)."""
+    rays = camera.ray_gen(pixel_idx, sample_idx, seed)
+    rad, miss_dir, miss_thru, missed, first_n, first_t = trace_bounces_rowmajor(
+        scene, gs, rays, pixel_idx, sample_idx, seed, depth, tex_stack=tex_stack)
+    sky = texture.sample_sky_packed(sky_packed, miss_dir)
+    return rad + miss_thru * sky * missed[..., None].to(torch.float32), first_n, first_t
+
+
 def sky_epilogue(sky_packed, rad_p, miss_p, thru_p, missed):
     """Radiance f32[R,3]: the gathered radiance plus, on the paths that
     escaped, the throughput times the sky at the miss direction."""
@@ -235,17 +314,30 @@ def _mega_tex_radiance(gs, tex_stack, hit_planes, aux, miss_p, missed, sky_packe
     return sky_epilogue(sky_packed, rad, miss_p, thru, missed)
 
 
+def _per_bounce_sample(scene, gs, camera, sky_packed, pixel_idx, sample_idx, seed, depth,
+                       tex_stack):
+    """One sample off the megakernel: the planar wavefront body for a
+    grouped scene and flat pixel indices unless POCA_PLANAR=0 (JAX
+    `integrator.py:72-75`), else the row-major body.  Returns (radiance
+    f32[..., 3], first_normal f32[..., 3], first_t f32[...])."""
+    if gs is not None and pixel_idx.dim() == 1 and os.environ.get("POCA_PLANAR", "1") != "0":
+        rad_p, miss_p, thru_p, missed, fn_p, ft = wavefront_sample(
+            gs, camera, pixel_idx, sample_idx, seed, depth, tex_stack)
+        return sky_epilogue(sky_packed, rad_p, miss_p, thru_p, missed), planar.stack_v3(fn_p), ft
+    return rowmajor_sample(scene, gs, camera, sky_packed, pixel_idx, sample_idx, seed, depth,
+                           tex_stack)
+
+
 def render_sample(scene, camera, sky_tex, pixel_idx, sample_idx, seed, max_depth: int,
                   tex_stack=None):
-    """One sample-per-pixel pass of the wavefront path over flat pixel
-    indices (JAX `integrator.py:335-343`).  Returns (radiance f32[R,3],
-    first_normal f32[R,3], first_t f32[R]); differentiable."""
-    gs = fast.group_scene(scene)
-    rad_p, miss_p, thru_p, missed, fn_p, ft = wavefront_sample(
-        gs, camera, pixel_idx, sample_idx, seed, max_depth, tex_stack
-    )
-    rad = sky_epilogue(texture.pack_bilinear(sky_tex), rad_p, miss_p, thru_p, missed)
-    return rad, planar.stack_v3(fn_p), ft
+    """One sample-per-pixel pass of the per-bounce paths (JAX
+    `integrator.py:335-343`) over pixel indices: flat (R,) for a grouped
+    scene, any shape for a scene without type metadata.  Returns
+    (radiance f32[..., 3], first_normal f32[..., 3], first_t f32[...]);
+    differentiable."""
+    return _per_bounce_sample(scene, fast.group_scene(scene), camera,
+                              texture.pack_bilinear(sky_tex), pixel_idx, sample_idx, seed,
+                              max_depth, tex_stack)
 
 
 def render_radiance(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: int = 0,
@@ -253,8 +345,9 @@ def render_radiance(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: i
                     spp_chunk: int = 1):
     """Mean radiance over `spp` samples on the device the scene lives on.
 
-    Returns (radiance f32[R,3], first_normal f32[R,3], first_t f32[R]);
-    the aux buffers come from sample 0.  `spp_chunk` samples are traced as
+    Returns (radiance f32[..., 3], first_normal f32[..., 3], first_t
+    f32[...]) over the pixel indices (default: every pixel, flat); the aux
+    buffers come from sample 0.  `spp_chunk` samples are traced as
     one [spp_chunk * R] batch with per-ray sample keys (same draws, same
     paths; only the order of the float32 sum changes); POCA_SPP_CHUNK, a
     positive integer, overrides it, as in the JAX package, so that a knob
@@ -263,9 +356,9 @@ def render_radiance(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: i
     f32[T, H, W, 3] textures the albedo of objects whose tex_id is >= 0.
     The result is differentiable w.r.t. the scene's material and geometry
     fields, the camera, the sky and the texture stack whenever they
-    require grad, on both paths (the backward of each sample is
-    ``ops/mega.py::MegaSample`` or :class:`WavefrontSample`).  The serving
-    path calls it under torch.no_grad().
+    require grad, on every path (the backward of each sample is
+    ``ops/mega.py::MegaSample``, :class:`WavefrontSample` or autograd of
+    the row-major body).  The serving path calls it under torch.no_grad().
     """
     dev = scene.device
     if camera.device != dev or sky_tex.device != dev or (
@@ -291,10 +384,10 @@ def render_radiance(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: i
 
     gs = fast.group_scene(scene)
     sky_packed = texture.pack_bilinear(sky_tex)
-    use_mega = not fast.use_bvh(gs) and os.environ.get("POCA_MEGA", "") != "0"
+    use_mega = gs is not None and not fast.use_bvh(gs) and os.environ.get("POCA_MEGA", "") != "0"
     textured = tex_stack is not None
 
-    acc_rad = torch.zeros((r_n, 3), dtype=torch.float32, device=dev)
+    acc_rad = torch.zeros((*pixel_idx.shape, 3), dtype=torch.float32, device=dev)
     acc_n = acc_t = None
     for s in range(spp // spp_chunk):
         s_key = sample_offset + s * spp_chunk
@@ -306,13 +399,12 @@ def render_radiance(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: i
             )
             if textured:
                 rad = _mega_tex_radiance(gs, tex_stack, hits, aux[0], miss_p, missed, sky_packed)
+            else:
+                rad = sky_epilogue(sky_packed, rad_p, miss_p, thru_p, missed)
+            n0 = planar.stack_v3(fn_p)
         else:
-            rad_p, miss_p, thru_p, missed, fn_p, ft = wavefront_sample(
-                gs, camera, pix_c, s_key, seed, max_depth, tex_stack
-            )
-        if not (use_mega and textured):
-            rad = sky_epilogue(sky_packed, rad_p, miss_p, thru_p, missed)
-        n0 = planar.stack_v3(fn_p)
+            rad, n0, ft = _per_bounce_sample(scene, gs, camera, sky_packed, pix_c, s_key, seed,
+                                             max_depth, tex_stack)
         if spp_chunk > 1:
             rad = rad.reshape(spp_chunk, r_n, 3).sum(0)
             n0, ft = n0[:r_n], ft[:r_n]

@@ -20,7 +20,7 @@ import math
 import torch
 
 from cpppathtracer_tpu_torch.ops.mathx import EPS, clamp, div_const
-from cpppathtracer_tpu_torch.types import resolve_device
+from cpppathtracer_tpu_torch.types import INF, Rays, resolve_device
 from cpppathtracer_tpu_torch.utils import rng as prng
 
 
@@ -111,11 +111,13 @@ class Camera:
         inv = torch.where(n2 > 0, 1.0 / torch.sqrt(clamp(n2, lo=EPS)), torch.zeros_like(n2))
         return o, tuple(t * inv for t in t_rel)
 
-    def ray_gen(self, pixel_idx, sample_idx, seed):
-        """Row-major form of :meth:`ray_gen_planar`: (origin f32[R,3],
-        dir f32[R,3])."""
+    def ray_gen(self, pixel_idx, sample_idx, seed) -> Rays:
+        """Row-major form of :meth:`ray_gen_planar` for pixel indices of any
+        shape: `Rays` with origin and dir f32[..., 3] (the planar values,
+        stacked), tmin 0 and tmax DEFAULT_RAY_TMAX."""
         o, d = self.ray_gen_planar(pixel_idx, sample_idx, seed)
-        return torch.stack(o, dim=-1), torch.stack(d, dim=-1)
+        zero = torch.zeros_like(o[0])
+        return Rays(torch.stack(o, dim=-1), torch.stack(d, dim=-1), zero, zero + INF)
 
     # interactive motion (motional_camera.cu:76-168); each op returns a new
     # camera and the caller restarts accumulation

@@ -76,17 +76,10 @@ class Scene:
     def device(self) -> torch.device:
         return self.center.device
 
-    def partition(self) -> tuple[tuple, tuple]:
-        """(type_perm, type_counts): the scene's metadata, or for a scene
-        made without it (a hand-made Scene) the partition that
-        SceneBuilder.build makes, from prim_type (:func:`type_partition`)."""
-        if self.type_perm and self.type_counts:
-            return self.type_perm, self.type_counts
-        return type_partition(self.prim_type.detach().cpu().numpy())
-
     def _grouped_geometry(self):
-        """The geometry fields in grouped order, as numpy arrays."""
-        perm = np.asarray(self.partition()[0], np.int64)
+        """The geometry fields in grouped order (type_perm), as numpy
+        arrays."""
+        perm = np.asarray(self.type_perm, np.int64)
         g = lambda a: a.detach().cpu().numpy()[perm]
         return g(self.center), g(self.radius), g(self.y_pos), g(self.height), g(self.prim_type)
 
@@ -94,7 +87,11 @@ class Scene:
         """Attach skip-pointer BVH tables, built on the host (rebuild or
         refit after geometry edits).  leaf_size None = the JAX package's
         rule, K = max(32, ceil8(ceil(N / 256))), which keeps M near 511
-        nodes at any scene size."""
+        nodes at any scene size.  A scene without type metadata (a
+        hand-made Scene) raises ValueError, as in the JAX package: the
+        tables index the grouped order."""
+        if not self.type_perm or not self.type_counts:
+            raise ValueError("with_bvh needs type-partition metadata")
         if leaf_size is None:
             k = -(-self.num_objects // 256)
             leaf_size = max(32, -(-k // 8) * 8)

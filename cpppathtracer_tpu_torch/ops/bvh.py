@@ -1,5 +1,6 @@
-"""Skip-pointer BVH tables, built on the host in NumPy (counterpart of the
-skip-pointer half of ``cpppathtracer_tpu/ops/bvh.py``).
+"""BVHs (counterpart of ``cpppathtracer_tpu/ops/bvh.py``): the skip-pointer
+tables that the wavefront path's walk kernel reads, and the lock-step
+stack BVH with its own walk.
 
 The build reproduces the reference's median split (`SceneBVH::Divide`,
 `cuSrc/bvh.cu:31-95`) with K-object leaves: nodes in preorder, each with
@@ -16,18 +17,35 @@ The tables (what ``csrc/bvh.cu`` and its plain version read):
   leaf_objs f32[L*K, 8] (cx, cy, cz, radius, y_pos, height, prim_type
                          (-1 pad), grouped object index)
 
-The lock-step stack traversal of the JAX package (`BVH`, `build_bvh`,
-`intersect_bvh`, `intersect_auto`) and its native builder are not ported
-yet (ROADMAP.md).
+The stack BVH (`BVH`, `build_bvh`, `refit_bvh`, `intersect_bvh`,
+`intersect_auto`; JAX `ops/bvh.py:85-365`) has one object per leaf and
+child links; `build_bvh` runs the same median split in the native C++
+builder (``utils/native.py``) and falls back to NumPy.  `intersect_bvh`
+walks it lock-step: every ray keeps its own short stack, and each step of
+a Python loop pops one node per ray, slab-tests it against the ray's best
+t so far, tests a leaf's object and pushes an internal node's children,
+until no ray's stack holds a node.  The loop reads that condition on the
+host once a step, the cost of this design on the card (the JAX package
+runs the same loop as one `lax.while_loop`).  No render path uses it; the
+wavefront path walks the skip-pointer tables with ``csrc/bvh.cu``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 
 import numpy as np
+import torch
 
-from cpppathtracer_tpu_torch.types import BOUNCE_RAY_TMIN, DEFAULT_RAY_TMAX, PrimitiveType
+from cpppathtracer_tpu_torch.ops import intersect as dense
+from cpppathtracer_tpu_torch.types import (
+    BOUNCE_RAY_TMIN,
+    DEFAULT_RAY_TMAX,
+    INF,
+    Hit,
+    PrimitiveType,
+)
 
 
 def object_aabbs(scene_np) -> tuple[np.ndarray, np.ndarray]:
@@ -230,3 +248,225 @@ def refit_skip_tables(node_meta, node_aabb, leaf_objs, leaf_size,
             node_aabb[i, 0:3] = np.minimum(node_aabb[left, 0:3], node_aabb[right, 0:3])
             node_aabb[i, 3:6] = np.maximum(node_aabb[left, 3:6], node_aabb[right, 3:6])
     return node_aabb, leaf_objs
+
+
+# ---- the lock-step stack BVH (JAX ops/bvh.py:85-365)
+
+
+def scene_to_np(scene) -> dict:
+    """The scene's fields as a dict of numpy arrays (the port's copy of the
+    JAX package's `reference_cpu.scene_to_np`)."""
+    f = lambda a: a.detach().cpu().numpy()
+    return {k: f(getattr(scene, k)) for k in (
+        "prim_type", "center", "radius", "y_pos", "height", "mat_type", "kd", "emission",
+        "smoothness", "reflectivity", "ior")}
+
+
+@dataclasses.dataclass
+class BVH:
+    """Flat node tensors of a stack BVH: left, right i32[M] child nodes (-1
+    at a leaf); obj_idx i32[M] the leaf's object (-1 at an internal node);
+    aabb_min, aabb_max f32[M, 3]; depth, a bound on the stack depth."""
+
+    left: torch.Tensor
+    right: torch.Tensor
+    obj_idx: torch.Tensor
+    aabb_min: torch.Tensor
+    aabb_max: torch.Tensor
+    depth: int
+
+
+def build_bvh_numpy(aabb_min: np.ndarray, aabb_max: np.ndarray) -> dict:
+    """The reference's median-split build (`bvh.cu:31-95`) with one object
+    per leaf, nodes in preorder: each node sorts its objects by AABB
+    centroid along the longest axis of their union and splits at the
+    middle index.  Returns numpy arrays left, right, obj_idx, aabb_min,
+    aabb_max; a scene with no active object gives one leaf that never
+    hits."""
+    n = aabb_min.shape[0]
+    active = [i for i in range(n) if aabb_min[i, 0] <= aabb_max[i, 0]]
+    order = list(active)
+    cent = (aabb_min + aabb_max) * 0.5
+    left, right, obj, amin, amax = [], [], [], [], []
+
+    def divide(l, r):
+        idx = len(left)
+        left.append(-1)
+        right.append(-1)
+        obj.append(-1)
+        amin.append(None)
+        amax.append(None)
+        if l == r - 1:
+            o = order[l]
+            obj[idx] = o
+            amin[idx] = aabb_min[o].copy()
+            amax[idx] = aabb_max[o].copy()
+            return idx
+        group = order[l:r]
+        gmin = aabb_min[group].min(axis=0)
+        gmax = aabb_max[group].max(axis=0)
+        span = gmax - gmin
+        if span[0] >= span[1] and span[0] >= span[2]:
+            axis = 0
+        elif span[1] >= span[2]:
+            axis = 1
+        else:
+            axis = 2
+        group.sort(key=lambda o: float(cent[o, axis]))
+        order[l:r] = group
+        mid = (l + r) // 2
+        left[idx] = divide(l, mid)
+        right[idx] = divide(mid, r)
+        amin[idx] = gmin
+        amax[idx] = gmax
+        return idx
+
+    if not active:
+        return {
+            "left": np.array([-1], np.int32),
+            "right": np.array([-1], np.int32),
+            "obj_idx": np.array([-1], np.int32),
+            "aabb_min": np.full((1, 3), np.inf, np.float32),
+            "aabb_max": np.full((1, 3), -np.inf, np.float32),
+        }
+    old = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(old, 4 * len(active) + 100))
+    try:
+        divide(0, len(active))
+    finally:
+        sys.setrecursionlimit(old)
+    return {
+        "left": np.asarray(left, np.int32),
+        "right": np.asarray(right, np.int32),
+        "obj_idx": np.asarray(obj, np.int32),
+        "aabb_min": np.stack(amin).astype(np.float32),
+        "aabb_max": np.stack(amax).astype(np.float32),
+    }
+
+
+def build_bvh(scene) -> BVH:
+    """A stack BVH over the scene's objects (in the scene's own order), on
+    the scene's device: the native builder when ``utils.native`` can load
+    it, else :func:`build_bvh_numpy` (the two give equal arrays;
+    ``native.available()`` says which one runs).  The stack bound is
+    2 ceil(log2(max(M, 2))) + 4 for M nodes: the median split is
+    balanced."""
+    from cpppathtracer_tpu_torch.utils import native
+
+    amin, amax = object_aabbs(scene_to_np(scene))
+    arrays = native.build_bvh(amin, amax) if native.available() else build_bvh_numpy(amin, amax)
+    m = len(arrays["left"])
+    dev = scene.device
+    t = lambda k: torch.from_numpy(arrays[k]).to(dev)
+    return BVH(left=t("left"), right=t("right"), obj_idx=t("obj_idx"), aabb_min=t("aabb_min"),
+               aabb_max=t("aabb_max"), depth=2 * int(np.ceil(np.log2(max(m, 2)))) + 4)
+
+
+def refit_bvh(bvh: BVH, scene) -> BVH:
+    """The node boxes refit to moved objects without a new topology
+    (`SceneBVH::UpdateObject` and its walk to the root, `bvh.cu:122-157`,
+    for every leaf in one pass): children follow their parent in preorder,
+    so one reverse sweep sets each leaf's box from its object and each
+    internal node's as the union of its children's."""
+    amin, amax = object_aabbs(scene_to_np(scene))
+    left, right, obj = (a.cpu().numpy() for a in (bvh.left, bvh.right, bvh.obj_idx))
+    node_min = bvh.aabb_min.cpu().numpy().copy()
+    node_max = bvh.aabb_max.cpu().numpy().copy()
+    for i in range(len(left) - 1, -1, -1):
+        if obj[i] >= 0:
+            node_min[i] = amin[obj[i]]
+            node_max[i] = amax[obj[i]]
+        else:
+            kids = [c for c in (left[i], right[i]) if c >= 0]
+            if kids:
+                node_min[i] = node_min[kids].min(axis=0)
+                node_max[i] = node_max[kids].max(axis=0)
+    dev = bvh.aabb_min.device
+    return dataclasses.replace(bvh, aabb_min=torch.from_numpy(node_min).to(dev),
+                               aabb_max=torch.from_numpy(node_max).to(dev))
+
+
+def stack_walk(scene, bvh: BVH, o, d, tmin, tmax):
+    """The lock-step walk of rays o, d f32[R, 3] (tmin, tmax f32[R]) over
+    `bvh`: (best t f32[R], best object i32[R] or -1, steps).  Each step
+    pops one node per ray whose stack is not empty, slab-tests its box
+    against the ray's best t (the tmax shrink of `bvh.cu:182-199`; a zero
+    direction component leaves its slab open), tests a leaf's object
+    (``intersect._object_best_t``, kept when strictly closer) and pushes an
+    internal node's children.  The loop ends when no stack holds a node:
+    one host read a step.  It only selects, so it runs without a graph."""
+    with torch.no_grad():
+        r, dev = tmin.shape[0], tmin.device
+        max_stack = bvh.depth + 2
+        stack = torch.zeros((r, max_stack), dtype=torch.int64, device=dev)
+        top = torch.ones(r, dtype=torch.int64, device=dev)  # the root, node 0, is pushed
+        best_t = tmax.clone()
+        best_obj = torch.full((r,), -1, dtype=torch.int32, device=dev)
+        lanes = torch.arange(max_stack, device=dev)[None, :]
+        zero_d = d == 0.0
+        safe_d = torch.where(zero_d, torch.ones_like(d), d)
+        big = torch.full_like(d, 2.0 * INF)
+        steps = 0
+        while bool((top > 0).any()):
+            steps += 1
+            active = top > 0
+            sp = torch.clamp(top - 1, min=0)
+            node = torch.where(active, stack.gather(1, sp[:, None])[:, 0], torch.zeros_like(sp))
+            top = torch.where(active, top - 1, top)
+            t0 = (bvh.aabb_min[node] - o) / safe_d
+            t1 = (bvh.aabb_max[node] - o) / safe_d
+            lo = torch.where(zero_d, -big, torch.minimum(t0, t1))
+            hi = torch.where(zero_d, big, torch.maximum(t0, t1))
+            local_tmin = lo.amax(dim=-1)
+            local_tmax = hi.amin(dim=-1)
+            overlap = (local_tmin <= local_tmax) & (local_tmin <= best_t) & (local_tmax >= tmin)
+            n_obj = bvh.obj_idx[node]
+            is_leaf = n_obj >= 0
+            oi = torch.clamp(n_obj, min=0).long()
+            cand_t = dense._object_best_t(
+                scene.prim_type[oi], scene.center[oi], scene.radius[oi], scene.y_pos[oi],
+                scene.height[oi], o, d, tmin, best_t,
+            )
+            leaf_hit = active & is_leaf & overlap & (cand_t < best_t)
+            best_t = torch.where(leaf_hit, cand_t, best_t)
+            best_obj = torch.where(leaf_hit, n_obj, best_obj)
+            push = active & overlap & ~is_leaf
+            for child in (bvh.left[node].long(), bvh.right[node].long()):
+                do = push & (child >= 0)
+                slot = lanes == torch.clamp(top, max=max_stack - 1)[:, None]
+                stack = torch.where(do[:, None] & slot, child[:, None], stack)
+                top = torch.where(do, torch.clamp(top + 1, max=max_stack), top)
+    return best_t, best_obj, steps
+
+
+def intersect_bvh(scene, bvh: BVH, rays) -> Hit:
+    """Closest hit of `rays` (any batch shape) through the lock-step stack
+    walk (:func:`stack_walk`), the same Hit as ``intersect.intersect``
+    gives but for a miss's pos (the origin) and normal (0).  The walk only
+    selects; the winner's t and normal are computed again with gradients
+    to the rays and the scene's geometry, as JAX's `intersect_bvh` does."""
+    batch = rays.tmin.shape
+    r = int(np.prod(batch)) if batch else 1
+    flat = type(rays)(rays.origin.reshape(r, 3), rays.dir.reshape(r, 3), rays.tmin.reshape(r),
+                      rays.tmax.reshape(r))
+    _, best_obj, _ = stack_walk(scene, bvh, flat.origin.detach(), flat.dir.detach(),
+                                flat.tmin.detach(), flat.tmax.detach())
+    t, normal = dense.winner_attrs(scene, flat, best_obj.long())
+    hit = best_obj >= 0
+    t = torch.where(hit, t, torch.full_like(t, INF))
+    pos = flat.origin + torch.where(t < INF, t, torch.zeros_like(t))[:, None] * flat.dir
+    return Hit(
+        t=t.reshape(batch),
+        hit=hit.reshape(batch),
+        pos=pos.reshape(*batch, 3),
+        normal=torch.where(hit[:, None], normal, torch.zeros_like(normal)).reshape(*batch, 3),
+        obj_idx=torch.where(hit, best_obj, torch.full_like(best_obj, -1)).reshape(batch),
+    )
+
+
+def intersect_auto(scene, rays, bvh: BVH | None = None, dense_threshold: int = 192) -> Hit:
+    """The dense search (``intersect.intersect``) for a scene of at most
+    `dense_threshold` objects or without a BVH, else :func:`intersect_bvh`."""
+    if bvh is None or scene.num_objects <= dense_threshold:
+        return dense.intersect(scene, rays)
+    return intersect_bvh(scene, bvh, rays)

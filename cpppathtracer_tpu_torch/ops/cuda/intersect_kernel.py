@@ -33,8 +33,16 @@ def winner_index(counts, o, d, tmin, tmax, geom):
 
     CUDA tensors launch ``csrc/winner.cu``; CPU tensors take
     :func:`winner_index_plain`.  A scene whose rows exceed the shared
-    memory of one block raises ValueError."""
+    memory of one block raises ValueError on either device, so that a CPU
+    run meets the card's limit."""
     dev = tmin.device
+    n_rep = geom.shape[0]
+    if 32 * n_rep > WINNER_SMEM_MAX:
+        raise ValueError(
+            f"winner_index stages {n_rep} geometry rows ({32 * n_rep} bytes) in shared "
+            f"memory; one block holds at most {WINNER_SMEM_MAX} bytes "
+            f"({WINNER_SMEM_MAX // 32} rows): give the scene BVH tables"
+        )
     if dev.type == "cpu":
         return winner_index_plain(counts, o, d, tmin, tmax, geom)
     if dev.type != "cuda":
@@ -44,16 +52,9 @@ def winner_index(counts, o, d, tmin, tmax, geom):
     f32 = torch.float32
     for k, t in enumerate([*o, *d, tmin, tmax]):
         kb.require(t, f"ray plane {k}", f32, (r,), dev)
-    n_rep = geom.shape[0]
     kb.require(geom, "geom", f32, (n_rep, 8), dev)
     if n_rep < ceil8(n_s) + ceil8(n_p) + ceil8(n_c):
         raise ValueError("geom has fewer rows than the counts")
-    if 32 * n_rep > WINNER_SMEM_MAX:
-        raise ValueError(
-            f"winner_index stages {n_rep} geometry rows ({32 * n_rep} bytes) in shared "
-            f"memory; one block holds at most {WINNER_SMEM_MAX} bytes "
-            f"({WINNER_SMEM_MAX // 32} rows): give the scene BVH tables"
-        )
     out = torch.empty((r,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = kb.library().poca_winner_index(
@@ -88,10 +89,16 @@ def build_geom_rows(gs):
 
 def winner_index_plain(counts, o, d, tmin, tmax, geom):
     """Dense grouped winner index i32[R] for planar rays (o, d tuples of
-    f32[R]; tmin, tmax f32[R]), with `_winner_kernel`'s formulas: each
-    group is an [objects, rays] block reduced by argmin (first minimum),
-    and a group's winner replaces the best only when strictly closer, so
-    the lowest grouped index wins ties."""
+    f32[R]; tmin, tmax f32[R]): :func:`winner_t_index_plain`'s index."""
+    return winner_t_index_plain(counts, o, d, tmin, tmax, geom)[1]
+
+
+def winner_t_index_plain(counts, o, d, tmin, tmax, geom):
+    """(best t f32[R], dense grouped winner index i32[R]) for planar rays,
+    with `_winner_kernel`'s formulas: each group is an [objects, rays]
+    block reduced by argmin (first minimum), and a group's winner replaces
+    the best only when strictly closer, so the lowest grouped index wins
+    ties.  Where nothing is hit the t is INF and the index 0."""
     n_s, n_p, n_c = counts
     ns8, np8 = ceil8(n_s), ceil8(n_p)
     ox, oy, oz = (v[None, :] for v in o)
@@ -177,4 +184,4 @@ def winner_index_plain(counts, o, d, tmin, tmax, geom):
 
         t_lat = torch.minimum(inf_where(lat_ok(t_ln), t_ln), inf_where(lat_ok(t_lf), t_lf))
         best_t, best_i = combine(best_t, best_i, torch.minimum(t_cap, t_lat), n_s + n_p)
-    return best_i
+    return best_t, best_i

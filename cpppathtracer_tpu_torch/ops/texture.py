@@ -66,6 +66,14 @@ def sky_uv(dir_xyz):
     return u, v
 
 
+def sample_sky(tex, dir_xyz):
+    """Sky radiance f32[..., 3] for normalized directions f32[..., 3]: the
+    four-tap bilinear fetch.  The render paths sample the sky with the
+    quad-packed form, :func:`sample_sky_packed`, as the JAX package's do."""
+    u, v = sky_uv(dir_xyz)
+    return sample_bilinear(tex, u, v)
+
+
 def load_texture(path) -> np.ndarray:
     """An image file as f32[H,W,3] in [0,1] (`textures.cu:14-62`)."""
     from PIL import Image

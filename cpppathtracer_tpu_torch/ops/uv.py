@@ -11,8 +11,8 @@ keeps it:
   platform  u = p.x * 0.01 ; v = p.z * 0.01   (world-grid tiling)
   cylinder  u = atan2(z, x)/(2 pi) + 0.5 ; v = (p.y - y_bot)/height
 
-The row-major `surface_uv` of the JAX package serves only its row-major
-bounce body, which the port does not have.
+`surface_uv_p` serves the planar bounce body and the megakernel's
+textured epilogue, `surface_uv` the row-major body.
 """
 
 from __future__ import annotations
@@ -49,3 +49,10 @@ def surface_uv_p(prim_type, center, radius, y_pos, height, pos):
     u = torch.where(is_sph, su, torch.where(is_pla, pu, su))
     v = torch.where(is_sph, sv, torch.where(is_pla, pv, cv))
     return u, v
+
+
+def surface_uv(prim_type, center, radius, y_pos, height, pos):
+    """Row-major form of :func:`surface_uv_p`: every field gathered per
+    ray (f32[...] / f32[..., 3], prim_type int); returns (u, v) f32[...]."""
+    return surface_uv_p(prim_type, tuple(center.unbind(-1)), radius, y_pos, height,
+                        tuple(pos.unbind(-1)))

@@ -217,10 +217,12 @@ def test_ray_gen_after_resize_matches_jax():
     jcam = jcam.resize(40, 20)
     pix = np.arange(40 * 20, dtype=np.int32)
     jr = jcam.ray_gen(jnp.asarray(pix), 2, 5)
-    o, d = cam.ray_gen(_t(pix), 2, 5)
-    assert o.shape == d.shape == (800, 3)
-    np.testing.assert_allclose(o.numpy(), _n(jr.origin), rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(d.numpy(), _n(jr.dir), rtol=1e-6, atol=1e-6)
+    rays = cam.ray_gen(_t(pix), 2, 5)
+    assert rays.origin.shape == rays.dir.shape == (800, 3) and rays.batch_shape == (800,)
+    np.testing.assert_allclose(rays.origin.numpy(), _n(jr.origin), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(rays.dir.numpy(), _n(jr.dir), rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(rays.tmin.numpy(), _n(jr.tmin))
+    np.testing.assert_array_equal(rays.tmax.numpy(), _n(jr.tmax))
 
 
 def test_material_params_match_jax():
