@@ -35,7 +35,11 @@ wavefront render; route B, the demo scene without type metadata through the dens
 intersect, flat and 2-D; a route A training step against the planar
 wavefront's gradients; the stack BVH of big_scene(16384): native against
 NumPy build, intersect_bvh against the skip-pointer walk, refit against a
-rebuild), and prints:
+rebuild), then phase 11: the megakernel's backward in its textured form
+(mega_bwd(ct_aux=...)) against its plain version, the phase-B schedules
+of JAX's ladder and second split against the single launch, and route A
+on big_scene(16384), whose rows the dense launch stages in tiles; and
+prints:
   - the card's name and power limit (nvidia-smi);
   - one JSON line {"kernels": [...]}: beside the keys every kernel has,
     only numbers this run measured, read from the built kernels or had the
@@ -316,6 +320,23 @@ def env(**values):
 
 
 @contextlib.contextmanager
+def record_calls(module, name, calls):
+    """Keep the (args, kwargs) of every call of `module.name` in a block
+    (the calls still run)."""
+    real = getattr(module, name)
+
+    def recording(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+
+    setattr(module, name, recording)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
 def record_bvh_rays(calls):
     """Keep a copy of the rays of every BVH walk the wavefront path
     launches (its launches still count)."""
@@ -456,6 +477,33 @@ def hit_float64(gs, ray, idx):
     return t, torch.nan_to_num(edge, nan=INF)
 
 
+def edge_band(gs, ray, idx):
+    """Per ray, the width of the band inside grouped object `idx`'s
+    silhouette edge within which float32 may decide a hit either way, for
+    either search: the discriminant a (r^2 - p^2) (p the ray's distance
+    from the centre, in xz for a cylinder's side; a = |d|^2, or dx^2 + dz^2
+    for a cylinder) is good to delta = 4 ulps of the largest term that the
+    dense search's expanded quadratic (|o|^2, 2 o.c, |c|^2 + r^2) or the
+    walk's direct one (|o - c|^2) rounds, so a ray whose r - p is below
+    r - sqrt(r^2 - delta / a) (~ delta / (2 a r) for a small delta; all of
+    r when delta / a >= r^2) can go either way; inf for a platform.  At
+    big_camera(4096), 840 units out, it is 0.125-0.25 at r = 1, where
+    bvh_phase uses EDGE_TOL = 0.25; at big_camera(16384), 1,680 units out,
+    1-2."""
+    from cpppathtracer_tpu_torch.types import PrimitiveType
+
+    f64 = lambda t: t.detach().to("cpu", torch.float64)
+    rec = f64(gs.table_s)[idx.long().cpu()].T
+    o, d = torch.stack([f64(c) for c in ray[0]]), torch.stack([f64(c) for c in ray[1]])
+    c, r = rec[0:3], rec[3].abs()
+    terms = torch.stack([(o * o).sum(0), 2 * (o * c).sum(0).abs(), (c * c).sum(0) + r * r,
+                         ((o - c) ** 2).sum(0)]).amax(0)
+    delta = 4 * 2.0 ** (torch.floor(torch.log2(terms)) - 23)
+    a = torch.where(rec[6] == PrimitiveType.CYLINDER, d[0] ** 2 + d[2] ** 2, (d * d).sum(0))
+    band = r - (r * r - delta / a).clamp(min=0).sqrt()
+    return torch.where(rec[6] == PrimitiveType.PLATFORM, torch.full_like(band, float("inf")), band)
+
+
 def loss_grads(scene, camera, sky, spp, depth, tex=None):
     """bench.py's loss, sum(rad^2), and its gradients w.r.t. kd and
     emission (and the texture stack `tex` when given)."""
@@ -508,7 +556,8 @@ def textured_phase(dev, scene, camera, sky, trace_args, gs, k1, time_kernels, li
     render, the unused-texture check, a profile and the training step.
     Returns the kernel row of the with_aux form (`time_kernels` times it at
     the main path's shapes; `live` live ray-bounces a sample, its
-    --fmad=false floor `floor_ms`)."""
+    --fmad=false floor `floor_ms`), and the arguments of the training
+    step's first mega_bwd call with the step's mega_bwd launches."""
     from cpppathtracer_tpu_torch.integrator import render_radiance
     from cpppathtracer_tpu_torch.ops import mega as mega_mod
     from cpppathtracer_tpu_torch.ops.cuda import build as kb
@@ -600,25 +649,33 @@ def textured_phase(dev, scene, camera, sky, trace_args, gs, k1, time_kernels, li
         profile_device(lambda: render(tex_scene, 4), "textured render, 4 samples")
 
     # 3. the textured training step: bench.py's loss, gradients for kd, emission and the
-    # textures; its backward is torch autograd of the replay (ops/mega.py)
+    # textures; its backward is mega_bwd's textured instance, one launch a sample, and no
+    # autograd replay runs (ops/mega.py).  The first backward call's arguments are kept
+    # for phase 11's check of the kernel on the step's own cotangents.
     tex_step = lambda spp: loss_grads(tex_scene, camera, sky, spp, DEPTH, tex)
     tex_step(1)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kb.reset_launches()
+    bwd_calls, replays = [], []
     t0 = time.perf_counter()
-    loss, g_kd, g_em, g_tex = tex_step(2)
-    torch.cuda.synchronize()
+    with record_calls(mega_mod, "mega_bwd", bwd_calls), record_calls(mega_mod, "replay_vjp", replays):
+        loss, g_kd, g_em, g_tex = tex_step(2)
+        torch.cuda.synchronize()
     dt_t = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    if kb.LAUNCHES["mega_trace_aux"] != 4 or kb.LAUNCHES["mega_bwd"]:
-        raise AssertionError(f"the textured step launched {dict(kb.LAUNCHES)}")
+    step_launches = dict(kb.LAUNCHES)
+    if step_launches["mega_trace_aux"] != 4 or step_launches["mega_bwd"] != 2 or replays:
+        raise AssertionError(f"the textured step launched {step_launches} and ran the autograd "
+                             f"replay {len(replays)} times (expected 2 mega_bwd launches, no replay)")
     if not all(torch.isfinite(g).all() for g in (g_kd, g_em, g_tex)) or not bool((g_tex != 0).any()):
         raise AssertionError("the textured gradients are non-finite or the texture's is zero")
     log(f"[texture train] fwd+bwd 1024^2 x 2 spp x d{DEPTH}: {dt_t * 1e3:.1f} ms/step, peak memory "
-        f"{peak_gib:.2f} GiB, launches {dict(kb.LAUNCHES)}, loss {float(loss):.6g}, |g_kd| "
+        f"{peak_gib:.2f} GiB (613.2-950.3 ms and 11.80 GiB through the autograd replay, PERF.md), "
+        f"launches {step_launches}, autograd replays {len(replays)}, loss {float(loss):.6g}, |g_kd| "
         f"{float(g_kd.norm()):.6g}, |g_emission| {float(g_em.norm()):.6g}, |g_tex| "
         f"{float(g_tex.norm()):.6g} ({int((g_tex != 0).sum())} nonzero entries)")
+    profile_device(lambda: tex_step(2), "textured training step, 2 spp")
 
     # 4. the with_aux form's time per sample (phase A + B) at these shapes
     ms, plain_ms, bound_ms, bound_by = time_kernels(
@@ -636,7 +693,7 @@ def textured_phase(dev, scene, camera, sky, trace_args, gs, k1, time_kernels, li
                  replaces="cpppathtracer_tpu/ops/pallas/mega_kernel.py:290",
                  launches=launches["mega_trace_aux"], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None, live_ray_bounces=live,
-                 **shape)]
+                 **shape)], (bwd_calls[0], step_launches["mega_bwd"])
 
 
 def bvh_phase(dev, sky):
@@ -650,7 +707,7 @@ def bvh_phase(dev, sky):
     from cpppathtracer_tpu_torch.ops.cuda import build as kb
     from cpppathtracer_tpu_torch.ops.cuda.bvh_kernel import bvh_winner_index, bvh_winner_index_plain
     from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import (
-        build_geom_rows, winner_index, winner_index_plain,
+        WINNER_TILE_ROWS, build_geom_rows, winner_index, winner_index_plain,
     )
     from cpppathtracer_tpu_torch.ops.fast import group_scene
     from cpppathtracer_tpu_torch.ops.planar import gather_epilogue_p
@@ -928,7 +985,7 @@ def bvh_phase(dev, sky):
     ops_ws, bytes_ws = ops_w / FP32_OPS_PER_S, bytes_w / HBM_BYTES_PER_S
     floor_w = ops_w / FP32_INSTR_PER_S
     regs_w, local_w, per_sm_w, grid_w = kernel_info(kb.library().poca_winner_info, r,
-                                                    geom4.shape[0], n=4)
+                                                    geom4.shape[0], WINNER_TILE_ROWS, n=4)
     # for the log: one search per ray, a ray a thread (the kernel counts no
     # lanes); the last block's threads past R run masked
     shape_w = dict(registers=regs_w, local_bytes=local_w, blocks_per_sm=per_sm_w,
@@ -1458,6 +1515,257 @@ def entry_points_phase(dev, card, tmp):
         raise AssertionError("gather_frame through a one-rank NCCL group failed")
 
 
+def textured_bwd_phase(dev, trace_args, gs, step_call, step_launches):
+    """Phase 11 (a): mega_bwd's textured instance (ct_aux) against
+    mega_bwd_plain(ct_aux=...) on a depth-8 textured sample of the demo
+    scene at 1024^2 with random cotangents (the aux ones zero on the bounces
+    that missed, as the texture epilogue gives them), then on the real
+    cotangents of the textured training step's first sample (`step_call`,
+    its (args, kwargs)); times it on those.  Returns its kernel row, with
+    the step's `step_launches`."""
+    from cpppathtracer_tpu_torch.ops.cuda import build as kb
+    from cpppathtracer_tpu_torch.ops.cuda.mega_bwd_kernel import mega_bwd, mega_bwd_plain
+    from cpppathtracer_tpu_torch.ops.cuda.mega_kernel import mega_trace
+
+    r = W * H
+    o, d, pix, samp, seed, geom, ts, trt = trace_args
+    out = mega_trace(*trace_args, counts=gs.counts, depth=DEPTH, with_aux=True)
+    hits = torch.stack(out[6]).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cts = [torch.randn(r, device=dev, generator=gen) for _ in range(13)]
+    ct_aux = torch.randn((4 * DEPTH, r), device=dev, generator=gen)
+    ct_aux = torch.where(hits.repeat_interleave(4, 0) >= 0, ct_aux, 0.0)
+    args = (o, d, pix, samp, seed, ts, trt, hits, cts)
+    err_rand = compare_bwd(mega_bwd(*args, ct_aux=ct_aux), mega_bwd_plain(*args, ct_aux=ct_aux),
+                           "mega_bwd(ct_aux) depth 8, 1024^2 textured primaries, random cotangents")
+    s_args, s_kw = step_call
+    step_aux = s_kw["ct_aux"]
+    missed_aux = float(step_aux[s_args[7].repeat_interleave(4, 0) < 0].abs().max())
+    err_step = compare_bwd(mega_bwd(*s_args, **s_kw), mega_bwd_plain(*s_args, **s_kw),
+                           "mega_bwd(ct_aux) on the textured step's own cotangents (sample 0)")
+    log(f"[check] the textured step's aux cotangents on bounces that missed: max |ct| {missed_aux} "
+        f"(the kernel does not read them; the replay would)")
+    if missed_aux:
+        raise AssertionError("the texture epilogue gave a bounce that missed an aux cotangent")
+    ms = time_ms(lambda: mega_bwd(*s_args, **s_kw), iters=10)
+    plain_ms = time_ms(lambda: mega_bwd_plain(*s_args, **s_kw), iters=1, warmup=1)
+    hits_s = s_args[7]
+    live = int((hits_s >= 0).sum())
+    # bytes: 6 ray planes, pix, samp, 13 cotangent planes, the winner planes and the
+    # 4 x depth aux cotangent planes read, 6 written; operations: the untextured body's
+    # per ray-bounce that hit and the aux terms' 4 adds
+    n_pad = ts.shape[1]
+    bytes_b = 4 * r * (6 + 2 + 13 + DEPTH + 4 * DEPTH + 6) + 4 * 2 * 17 * n_pad
+    ops_s = (OPS_BWD_RAY_BOUNCE + 4) * live / FP32_OPS_PER_S
+    bytes_s = bytes_b / HBM_BYTES_PER_S
+    regs, local, per_sm = kernel_info(kb.library().poca_mega_bwd_info, n_pad, 1, 1, n=3)
+    regs0 = kernel_info(kb.library().poca_mega_bwd_info, n_pad, 1, 0, n=3)[0]
+    log(f"[kernels] mega_bwd (with_aux) per textured sample: {ms:.4f} ms, bound "
+        f"{max(ops_s, bytes_s) * 1e3:.4f} ms ({live} ray-bounces that hit, {ops_s * 1e3:.4f} ms; "
+        f"{bytes_b / 1e6:.1f} MB {bytes_s * 1e3:.4f} ms); plain (autograd of the replay) "
+        f"{plain_ms:.1f} ms; {regs} registers ({regs0} untextured), {local} local bytes a thread, "
+        f"{per_sm} resident blocks of 128 threads per SM")
+    return dict(name="mega_bwd (with_aux)", route="cuda",
+                source="cpppathtracer_tpu_torch/csrc/mega_bwd.cu",
+                replaces="cpppathtracer_tpu/ops/pallas/mega_bwd_kernel.py:389",
+                launches=step_launches, max_abs_err=max(err_rand, err_step), ms=ms,
+                plain_ms=plain_ms, bound_ms=max(ops_s, bytes_s) * 1e3,
+                bound_by="operations" if ops_s > bytes_s else "bytes", library_ms=None,
+                registers=regs, blocks_per_sm=per_sm)
+
+
+def route_a_tiled_phase(dev, sky):
+    """Phase 11 (b): route A (POCA_MEGA=0 POCA_PLANAR=0) on big_scene(16384),
+    whose 16,400 geometry rows the dense launch stages in three tiles, at
+    1024^2 x 1 spp x d8: it renders, finite; the launch bitwise equal to
+    winner_index_plain on 2^16 lanes of bounces 0 and 1; its primary
+    winners against the skip-pointer walk (#7), bvh_phase's dense-vs-BVH
+    rule with its edge band scaled to this camera, twice as far out
+    (edge_band): equal on >= 99% of the lanes (99.49% on the H100), and
+    each other lane a tie in float64 or a ray within the edge band of
+    either winner's silhouette; the launch timed on the 1024^2 primaries
+    beside its bound and the plain version.  Returns its kernel
+    row."""
+    from cpppathtracer_tpu_torch.integrator import render_radiance
+    from cpppathtracer_tpu_torch.models.presets import big_camera, big_scene
+    from cpppathtracer_tpu_torch.ops import fast
+    from cpppathtracer_tpu_torch.ops.cuda import build as kb
+    from cpppathtracer_tpu_torch.ops.cuda.bvh_kernel import bvh_winner_index
+    from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import (
+        WINNER_TILE_ROWS, build_geom_rows, winner_index, winner_index_plain,
+    )
+    from cpppathtracer_tpu_torch.ops.planar import gather_epilogue_p
+
+    r = W * H
+    big = big_scene(BVH_N, device=dev)
+    cam = big_camera(BVH_N, W, H, device=dev)
+    gs = fast.group_scene(big)
+    geom = build_geom_rows(gs)
+    n_tiles = -(-geom.shape[0] // WINNER_TILE_ROWS)
+    calls = []
+    with torch.no_grad(), env(POCA_MEGA="0", POCA_PLANAR="0"):
+        render_radiance(big, cam, sky, spp=1, max_depth=2, seed=0)  # warm-up
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        t0 = time.perf_counter()
+        with record_rowmajor_rays(calls):
+            rad, n0, t_first = render_radiance(big, cam, sky, spp=1, max_depth=DEPTH, seed=0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(kb.LAUNCHES)
+    if launches != dict({k: 0 for k in launches}, winner_index=DEPTH):
+        raise AssertionError(f"route A on big_scene({BVH_N}) launched {launches}")
+    if not (torch.isfinite(rad).all() and rad.shape == (r, 3) and torch.isfinite(n0).all()):
+        raise AssertionError(f"route A on big_scene({BVH_N}) is not finite or has the wrong shape")
+    log(f"[route A tiles] big_scene({BVH_N}) under POCA_MEGA=0 POCA_PLANAR=0, 1024^2 x 1 spp x "
+        f"d{DEPTH}: {dt * 1e3:.1f} ms, launches {launches}, {geom.shape[0]} geometry rows in "
+        f"{n_tiles} tiles of {WINNER_TILE_ROWS}, mean radiance {float(rad.mean()):.5f}, first hits "
+        f"{float((t_first < 1e30).float().mean()):.4f}")
+    sub = torch.arange(0, r, r // SUB, device=dev)
+    planes = [fast._ray_planes(*fast._planes_of(c)) for c in calls[:2]]
+    for b, ray in enumerate(planes):
+        got = winner_index(gs.counts, *take(ray, sub), geom)
+        ref = torch.cat([winner_index_plain(gs.counts, *take(ray, part), geom)
+                         for part in sub.split(SUB // 4)])
+        log(f"[check] winner_index over {n_tiles} tiles vs plain, {SUB} lanes of route A's bounce "
+            f"{b} on big_scene({BVH_N}): {float((got == ref).float().mean()):.6f} equal, "
+            f"{float((got > 0).float().mean()):.4f} on an object other than 0")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"the tiled winner_index differs from its plain version at bounce {b}")
+    w_a = winner_index(gs.counts, *planes[0], geom)
+    o, d = cam.ray_gen_planar(torch.arange(r, dtype=torch.int32, device=dev), 0, 0)
+    w7 = bvh_winner_index(tuple(c.contiguous() for c in o), tuple(c.contiguous() for c in d),
+                          planes[0][2], planes[0][3], gs.bvh_meta, gs.bvh_aabb, gs.bvh_objs,
+                          leaf_size=gs.bvh_dims[1], layout=gs.bvh_layout)
+    share = float((w_a == w7).float().mean())
+    diff = (w_a != w7).nonzero().squeeze(1)
+    ray_d = take(planes[0], diff)
+    (t64_7, e_7), (t64_a, e_a) = (hit_float64(gs, ray_d, w[diff]) for w in (w7, w_a))
+    tie = (t64_a == t64_7) | ((t64_a - t64_7).abs() <= 1e-4 * t64_7)
+    band_7, band_a = edge_band(gs, ray_d, w7[diff]), edge_band(gs, ray_d, w_a[diff])
+    lost = ~tie & (e_7 > band_7) & (e_a > band_a)
+    rel = torch.minimum(e_7 / band_7, e_a / band_a)[~tie]
+    quant = lambda v: [round(x, 5) for x in v.quantile(
+        torch.tensor([0.5, 0.9, 1.0], dtype=torch.float64)).tolist()] if v.numel() else []
+    log(f"[check] route A's primary winners on big_scene({BVH_N}) against the skip-pointer walk "
+        f"(#7): equal on {share:.6f} of 1024^2 lanes; of the {diff.numel()} others, float64 ties "
+        f"{int(tie.sum())}, the dense winner the nearer in float64 on "
+        f"{int((t64_a < t64_7).sum())}; distance to the nearer silhouette edge (median, 90%, max) "
+        f"{quant(torch.minimum(e_7, e_a)[~tie])}, as a share of its edge band "
+        f"{quant(rel)} (bands {quant(torch.minimum(band_7, band_a)[~tie])}); outside: "
+        f"{int(lost.sum())}")
+    t32 = lambda w: gather_epilogue_p(gs.table_s, gs.table_r, *ray_d, w[diff])[0]["t"]
+    rec = lambda w: gs.table_s[w[diff].long()]
+    for k in lost.nonzero().squeeze(1).tolist()[:8]:
+        log(f"[check]   outside its band: lane {int(diff[k])}, ray o {[float(c[k]) for c in ray_d[0]]} "
+            f"d {[float(c[k]) for c in ray_d[1]]}; walk winner {int(w7[diff[k]])} (type "
+            f"{int(rec(w7)[k, 6])}, centre {rec(w7)[k, 0:3].tolist()}, r {float(rec(w7)[k, 3])}, "
+            f"h {float(rec(w7)[k, 5])}) t32 {float(t32(w7)[k])} t64 {float(t64_7[k])} edge "
+            f"{float(e_7[k])} band {float(band_7[k])}; dense winner {int(w_a[diff[k]])} (type "
+            f"{int(rec(w_a)[k, 6])}, centre {rec(w_a)[k, 0:3].tolist()}, r {float(rec(w_a)[k, 3])}, "
+            f"h {float(rec(w_a)[k, 5])}) t32 {float(t32(w_a)[k])} t64 {float(t64_a[k])} edge "
+            f"{float(e_a[k])} band {float(band_a[k])}")
+    if share < 0.99 or lost.any():
+        raise AssertionError("route A's tiled winners disagree with the BVH walk beyond rounding")
+    ms = time_ms(lambda: winner_index(gs.counts, *planes[0], geom), iters=3, warmup=1)
+    t0 = time.perf_counter()
+    for part in torch.arange(r, device=dev).split(SUB // 2):
+        winner_index_plain(gs.counts, *take(planes[0], part), geom)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_s, n_p, n_c = gs.counts
+    ops = r * (OPS_SPHERE * n_s + OPS_PLATFORM * n_p + OPS_CYLINDER * n_c)
+    bytes_w = r * 4 * (8 + 1) + geom.numel() * 4
+    ops_s, bytes_s = ops / FP32_OPS_PER_S, bytes_w / HBM_BYTES_PER_S
+    regs, local, per_sm, grid = kernel_info(kb.library().poca_winner_info, r, geom.shape[0],
+                                            WINNER_TILE_ROWS, n=4)
+    log(f"[kernels] winner_index over {n_tiles} tiles, the 1024^2 primaries of route A on "
+        f"big_scene({BVH_N}): {ms:.3f} ms a launch, bound {max(ops_s, bytes_s) * 1e3:.4f} ms "
+        f"({ops:.4g} ops {ops_s * 1e3:.4f} ms; {bytes_w / 1e6:.1f} MB {bytes_s * 1e3:.4f} ms), "
+        f"--fmad=false floor {ops / FP32_INSTR_PER_S * 1e3:.4f} ms; plain {plain_ms:.1f} ms (in "
+        f"{SUB // 2}-lane parts); {regs} registers, {local} local bytes a thread, {per_sm} blocks "
+        f"of 1024 threads per SM, {grid} blocks")
+    return dict(name="winner_index (row tiles)", route="cuda",
+                source="cpppathtracer_tpu_torch/csrc/winner.cu",
+                replaces="cpppathtracer_tpu/ops/pallas/intersect_kernel.py:446",
+                launches=launches["winner_index"], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(ops_s, bytes_s) * 1e3,
+                bound_by="operations" if ops_s > bytes_s else "bytes", library_ms=None,
+                registers=regs, local_bytes=local, blocks_per_sm=per_sm)
+
+
+def ladder_phase(dev, scene, camera, sky):
+    """Phase 11 (c): the JAX package's static-prefix ladder and second split
+    of phase B (ops/mega.py, POCA_MEGA_LADDER / POCA_MEGA_SPLIT2 /
+    POCA_MEGA_PREFIX2) against the single phase-B launch, on the demo scene
+    at 1024^2 x d8: one sample of each schedule and the unsplit trace
+    (POCA_MEGA_SPLIT=0) through mega_sample: hit planes, missed, first_n and
+    first_t bitwise equal, radiance within 5e-7 absolute and relative
+    (tests/test_mega.py:327); PREFIX2 bitwise equal to the second split,
+    the ladder alone to the single launch; device ms per sample
+    (torch.profiler) and launches of each, and the 1024^2 x 4 spp x d8
+    render's wall time; the card's default (ops/mega.py::_CARD_LADDER) may
+    be no more than 5% slower in device time than the other schedule."""
+    from cpppathtracer_tpu_torch.integrator import render_radiance
+    from cpppathtracer_tpu_torch.ops import mega
+    from cpppathtracer_tpu_torch.ops.cuda import build as kb
+    from cpppathtracer_tpu_torch.ops.fast import group_scene
+
+    r = W * H
+    gs = group_scene(scene)
+    pix = torch.arange(r, dtype=torch.int32, device=dev)
+    schedules = {
+        "unsplit": dict(POCA_MEGA_SPLIT="0"),
+        "one launch": dict(POCA_MEGA_LADDER="0"),
+        "ladder": dict(POCA_MEGA_LADDER="1", POCA_MEGA_SPLIT2="0"),
+        "ladder + split2": dict(POCA_MEGA_LADDER="1", POCA_MEGA_SPLIT2="1"),
+        "prefix2": dict(POCA_MEGA_LADDER="1", POCA_MEGA_SPLIT2="1", POCA_MEGA_PREFIX2="1"),
+    }
+    sample = lambda: mega.mega_sample(gs, camera, pix, 0, 0, DEPTH)
+    planes = lambda s: [*s[0], *s[1], *s[2], s[3], *s[4], s[5], *s[6]]
+    out, stats = {}, {}
+    for name, switches in schedules.items():
+        with torch.no_grad(), env(**switches):
+            kb.reset_launches()
+            out[name] = sample()
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in kb.LAUNCHES.items() if v}
+            dev_ms, by_kernel = device_ms(sample, iters=10)
+            ms = time_ms(sample, iters=10)
+            render_radiance(scene, camera, sky, spp=1, max_depth=DEPTH, seed=0)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render_radiance(scene, camera, sky, spp=4, max_depth=DEPTH, seed=0)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 4
+        stats[name] = dev_ms
+        log(f"[split2] {name} ({switches}): one 1024^2 x d{DEPTH} sample, device {dev_ms:.4f} ms "
+            f"(torch.profiler; {by_kernel}), {ms:.4f} ms by CUDA events, launches {launches}; "
+            f"the 4-spp render {wall:.3f} ms/sample wall")
+    ref = out["unsplit"]
+    paths = lambda s: [s[3], *s[4], s[5], *s[6]]
+    same_paths = {n: all(torch.equal(bits(a), bits(b)) for a, b in zip(paths(s), paths(ref)))
+                  for n, s in out.items()}
+    rad_err = {n: max(float(((a - b).abs() / (5e-7 + 5e-7 * b.abs())).max()) for a, b in
+                      zip(s[0], ref[0])) for n, s in out.items()}
+    same_pre = same_bits(planes(out["prefix2"]), planes(out["ladder + split2"]))
+    same_lad = same_bits(planes(out["ladder"]), planes(out["one launch"]))
+    log(f"[check] against the unsplit trace: paths bitwise {same_paths}; radiance's largest "
+        f"|diff| / (5e-7 + 5e-7 |x|) {rad_err}; PREFIX2 bitwise equal to the second split "
+        f"{same_pre}; the ladder alone bitwise equal to the single launch {same_lad}")
+    if not (all(same_paths.values()) and max(rad_err.values()) <= 1 and same_pre and same_lad):
+        raise AssertionError("the ladder or the second split changed a path or the radiance")
+    default = "ladder + split2" if mega._CARD_LADDER else "one launch"
+    other = "one launch" if mega._CARD_LADDER else "ladder + split2"
+    faster = min((default, other), key=stats.get)
+    log(f"[split2] device ms per sample: the single phase-B launch {stats['one launch']:.4f}, the "
+        f"ladder and second split {stats['ladder + split2']:.4f}; faster in this run: {faster}; "
+        f"the card's default: {default}")
+    if stats[default] > 1.05 * stats[other]:
+        raise AssertionError(f"the card's default schedule ({default}) is more than 5% slower "
+                             f"than {other}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -1811,7 +2119,8 @@ def main():
     ms_bwd = time_ms(lambda: mega_bwd(*bwd_args), iters=10)
     plain_bwd_ms = time_ms(lambda: mega_bwd_plain(*bwd_args), iters=1, warmup=1)
     n_pad = ts.shape[1]
-    regs_bwd, local_bwd, per_sm_bwd = kernel_info(kb.library().poca_mega_bwd_info, n_pad, 1, n=3)
+    regs_bwd, local_bwd, per_sm_bwd = kernel_info(kb.library().poca_mega_bwd_info, n_pad, 1, 0,
+                                                   n=3)
     kernels.append(
         dict(name="mega_bwd", route="cuda", source="cpppathtracer_tpu_torch/csrc/mega_bwd.cu",
              replaces="cpppathtracer_tpu/ops/pallas/mega_bwd_kernel.py:389",
@@ -1824,8 +2133,9 @@ def main():
         f"plain {plain_bwd_ms:.1f} ms; {regs_bwd} registers, {local_bwd} local bytes a thread, "
         f"{per_sm_bwd} resident blocks of 128 threads per SM")
     # ---- phase 7: textured albedo on the megakernel path
-    kernels += textured_phase(dev, scene, camera, sky, trace_args, gs, k1, time_mega,
-                              work_a + work_b, floor_mega * 1e3)
+    tex_rows, tex_bwd = textured_phase(dev, scene, camera, sky, trace_args, gs, k1, time_mega,
+                                       work_a + work_b, floor_mega * 1e3)
+    kernels += tex_rows
     # ---- phase 8: BVH scenes through the per-bounce wavefront path, and its training step
     kernels += bvh_phase(dev, sky)
     # ---- phase 9: the entry points (command line, video, interactive, checkpoint), tile mesh
@@ -1834,6 +2144,11 @@ def main():
     # ---- phase 10: the row-major body (routes A and B) and the stack BVH
     route_a = rowmajor_phase(dev, sky)
     next(k for k in kernels if k["name"] == "winner_index").update(route_a)
+    # ---- phase 11: the textured backward on the card, route A past one tile of rows,
+    # the ladder and second split of phase B
+    kernels.append(textured_bwd_phase(dev, trace_args, gs, *tex_bwd))
+    ladder_phase(dev, scene, camera, sky)
+    kernels.append(route_a_tiled_phase(dev, sky))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

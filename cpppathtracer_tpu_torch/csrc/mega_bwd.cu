@@ -33,7 +33,8 @@
 //   with global atomics.  Atomics make ct_ts and ct_trt depend on the
 //   order of the adds, so they are held to a tolerance, not bitwise.
 // What bounds it: bytes, narrowly.  Per ray it reads 6 + 2 + 13 words and
-// the depth winner planes and writes 6; per ray-bounce that hit it
+// the depth winner planes (and a textured sample's 4 x depth aux
+// cotangents) and writes 6; per ray-bounce that hit it
 // recomputes the bounce body twice (forward sweep and reverse sweep, no
 // winner search) and runs its adjoint, about 960 FP32 operations, which on
 // the demo scene take about half as long as the bytes (chip_smoke.py
@@ -48,7 +49,10 @@
 // shared memory, so that form has no target
 #define POCA_BWD_MIN_BLOCKS 4
 
-template <bool SMEM_ACC>
+// SMEM_ACC: the table sums in shared memory; AUX: a textured sample's aux
+// cotangents (mega_bwd.cuh), an instance of its own so that the other
+// keeps its registers and its bits
+template <bool SMEM_ACC, bool AUX>
 __global__ void __launch_bounds__(POCA_BWD_BLOCK, SMEM_ACC ? POCA_BWD_MIN_BLOCKS : 1)
     mega_bwd_kernel(BwdParams p) {
   extern __shared__ float smem[];
@@ -65,7 +69,7 @@ __global__ void __launch_bounds__(POCA_BWD_BLOCK, SMEM_ACC ? POCA_BWD_MIN_BLOCKS
 
   TableAcc a = {SMEM_ACC ? acc : p.out_tab, np};
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < p.R; i += gridDim.x * blockDim.x)
-    mega_bwd_ray(p, i, ts, trt, a);
+    mega_bwd_ray<AUX>(p, i, ts, trt, a);
 
   if (SMEM_ACC) {
     __syncthreads();
@@ -80,9 +84,10 @@ typedef void (*BwdKernel)(BwdParams);
 
 // The kernel for a call, its dynamic shared memory per block, and how many
 // of its blocks an SM holds and how many SMs there are.
-static cudaError_t pick(int n_pad, int smem_acc, BwdKernel* kern, size_t* smem, int* per_sm,
-                        int* sms) {
-  *kern = smem_acc ? mega_bwd_kernel<true> : mega_bwd_kernel<false>;
+static cudaError_t pick(int n_pad, int smem_acc, int aux, BwdKernel* kern, size_t* smem,
+                        int* per_sm, int* sms) {
+  *kern = smem_acc ? (aux ? mega_bwd_kernel<true, true> : mega_bwd_kernel<true, false>)
+                   : (aux ? mega_bwd_kernel<false, true> : mega_bwd_kernel<false, false>);
   *smem = sizeof(float) * (POCA_F_S + POCA_F_R) * (size_t)n_pad * (smem_acc ? 2 : 1);
   cudaError_t e;
   if (*smem > 48 * 1024) {
@@ -96,13 +101,14 @@ static cudaError_t pick(int n_pad, int smem_acc, BwdKernel* kern, size_t* smem, 
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, *kern, POCA_BWD_BLOCK, *smem);
 }
 
-// What a call at this n_pad launches: registers, local bytes per thread and
-// resident blocks per SM, into info[0..2].
-extern "C" int poca_mega_bwd_info(int n_pad, int smem_acc, int* info) {
+// What a call at this n_pad launches (aux: the textured instance):
+// registers, local bytes per thread and resident blocks per SM, into
+// info[0..2].
+extern "C" int poca_mega_bwd_info(int n_pad, int smem_acc, int aux, int* info) {
   BwdKernel kern;
   size_t smem = 0;
   int per_sm = 0, sms = 0;
-  cudaError_t e = pick(n_pad, smem_acc, &kern, &smem, &per_sm, &sms);
+  cudaError_t e = pick(n_pad, smem_acc, aux, &kern, &smem, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
   cudaFuncAttributes fa;
   if ((e = cudaFuncGetAttributes(&fa, kern)) != cudaSuccess) return (int)e;
@@ -119,7 +125,7 @@ extern "C" int poca_mega_bwd(
     const float* ct0, const float* ct1, const float* ct2, const float* ct3,
     const float* ct4, const float* ct5, const float* ct6, const float* ct7,
     const float* ct8, const float* ct9, const float* ct10, const float* ct11,
-    const float* ct12,
+    const float* ct12, const float* ct_aux,
     float* out_tab, float* out_od, float* carry,
     int R, int n_pad, int depth, int seed, int smem_acc, cudaStream_t stream) {
   if (R <= 0) return 0;
@@ -127,12 +133,12 @@ extern "C" int poca_mega_bwd(
     return (int)cudaErrorInvalidValue;
   BwdParams p = {ox, oy, oz, dx, dy, dz, pix, samp, ts, trt, hits,
                  {ct0, ct1, ct2, ct3, ct4, ct5, ct6, ct7, ct8, ct9, ct10, ct11, ct12},
-                 out_tab, out_od, carry, R, n_pad, depth, (uint32_t)seed};
+                 ct_aux, out_tab, out_od, carry, R, n_pad, depth, (uint32_t)seed};
   BwdKernel kern;
   size_t smem = 0;
   int per_sm = 0, sms = 0;
   // one wave of resident blocks; each loops over rays
-  cudaError_t e = pick(n_pad, smem_acc, &kern, &smem, &per_sm, &sms);
+  cudaError_t e = pick(n_pad, smem_acc, ct_aux != nullptr, &kern, &smem, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
   const int need = (R + POCA_BWD_BLOCK - 1) / POCA_BWD_BLOCK;
   const int wave = (per_sm > 0 ? per_sm : 1) * sms;

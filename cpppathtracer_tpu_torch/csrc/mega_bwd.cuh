@@ -20,6 +20,14 @@
 // missed passes every cotangent through unchanged (plus -ct_first_n into
 // ct_d at bounce 0), so a lane dead before bounce b contributes exactly 0
 // there.
+// The AUX instance (textured samples) also takes, per bounce, the
+// cotangents of the replay's aux outputs (ops/mega.py::_replay_chain):
+// the hit position pos, whose cotangent adds to the carry's ct_o where
+// pos is the next origin, and att = att_on * w * hit, whose cotangent adds
+// ct_att where att_on to the score-function weight's (att_on is a
+// comparison and carries none).  A bounce that missed reads neither: the
+// texture epilogue (integrator._mega_tex_radiance) gives such a bounce
+// zero cotangents, since its pos and att enter only where the path lives.
 #pragma once
 
 #include "bounce.cuh"
@@ -34,6 +42,8 @@ struct BwdParams {
   const int* hits;        // [depth, R]: winner on a hit, -1 on a miss
   // cotangents of rad3, miss_dir3, miss_thru3, first_n3, first_t
   const float* ct[13];
+  // [4 depth, R] or null: per bounce the cotangents of pos3 and att (AUX)
+  const float* ct_aux;
   float* out_tab;  // [17, n_pad], zeroed: ct_ts rows 0-12, ct_trt rows 13-16
   float* out_od;   // [6, R]: ct_o3, ct_d3
   float* carry;    // [10, R] or null: final o3 d3 thru3 missed
@@ -261,9 +271,11 @@ POCA_HD float score_bwd(bool took, float p, float ct) {
 }
 
 // shade's outputs (bounce, atten = atten_on ? kd * w : 0, emitted) ->
-// normal, in_dir and the record's material fields
+// normal, in_dir and the record's material fields; with AUX also the aux
+// output att = atten_on * w (its cotangent ct_att)
+template <bool AUX>
 POCA_HD void shade_bwd(const BounceFwd& f, V3 in_dir, V3 ct_bounce, V3 ct_atten,
-                       V3 ct_emitted, V3& ct_normal, V3& ct_in, RecGrad& g) {
+                       V3 ct_emitted, float ct_att, V3& ct_normal, V3& ct_in, RecGrad& g) {
   const ShadeFwd& s = f.s;
   const V3 normal = f.normal, kd = f.kd;
   const float ior = f.ior;
@@ -277,6 +289,7 @@ POCA_HD void shade_bwd(const BounceFwd& f, V3 in_dir, V3 ct_bounce, V3 ct_atten,
   if (s.atten_on) {
     g.kd = add(g.kd, ct_atten);
     ct_w = dot(ct_atten, kd);
+    if (AUX) ct_w += ct_att;
   }
   float ct_rp = 0.0f;
   if (s.is_mirror) g.reflectivity += score_bwd(s.mirror_reflects, f.reflectivity, ct_w);
@@ -365,13 +378,15 @@ POCA_HD int opaque(int i) {
 
 // The adjoint of one bounce that hit (enc >= 0), from the entry carry
 // (o, d, thru, alive) and its recomputed forward f.  In: the cotangents of
-// the carry after the bounce; out: those of the entry carry, and the
-// record's cotangents in g.
+// the carry after the bounce and, with AUX, of the bounce's aux outputs
+// (ct_pos_aux, ct_att); out: those of the entry carry, and the record's
+// cotangents in g.
+template <bool AUX>
 POCA_HD void bounce_bwd(const BounceFwd& f, V3 o, V3 d, V3 thru, bool alive, bool first,
-                        V3 ct_rad, V3 ct_fn, float ct_ft, V3& ct_o, V3& ct_d, V3& ct_thru,
-                        RecGrad& g) {
-  // o' = pos, d' = normalize(bounce)
-  const V3 ct_pos = ct_o;
+                        V3 ct_rad, V3 ct_fn, float ct_ft, V3 ct_pos_aux, float ct_att,
+                        V3& ct_o, V3& ct_d, V3& ct_thru, RecGrad& g) {
+  // o' = pos, d' = normalize(bounce); the aux output pos is o'
+  const V3 ct_pos = AUX ? add(ct_o, ct_pos_aux) : ct_o;
   const V3 ct_bounce = normalize_bwd(f.s.bounce, ct_d);
   // thru' = alive ? thru * atten : thru; rad' = rad + thru * emitted * alive
   V3 ct_atten = zero3(), ct_emitted = zero3();
@@ -381,7 +396,7 @@ POCA_HD void bounce_bwd(const BounceFwd& f, V3 o, V3 d, V3 thru, bool alive, boo
     ct_thru = add(mul(ct_thru, f.s.atten), mul(ct_rad, f.s.emitted));
   }
   V3 ct_normal, ct_in;
-  shade_bwd(f, d, ct_bounce, ct_atten, ct_emitted, ct_normal, ct_in, g);
+  shade_bwd<AUX>(f, d, ct_bounce, ct_atten, ct_emitted, ct_att, ct_normal, ct_in, g);
   float ct_trec = 0.0f;
   if (first) {  // first_n = normal, first_t = t
     ct_normal = add(ct_normal, ct_fn);
@@ -412,6 +427,8 @@ POCA_HD void get_carry(const float* c, int b, V3& o, V3& d, V3& thru) {
   thru = v3(w[6], w[7], w[8]);
 }
 
+// AUX: p.ct_aux holds the aux cotangents (a textured sample)
+template <bool AUX>
 POCA_HD void mega_bwd_ray(const BwdParams& p, int i, const float* ts, const float* trt,
                           TableAcc acc) {
   const int R = p.R, np = p.n_pad, depth = p.depth;
@@ -472,9 +489,16 @@ POCA_HD void mega_bwd_ray(const BwdParams& p, int i, const float* ts, const floa
     uniforms3((uint32_t)p.pix[io], (uint32_t)p.samp[io], (uint32_t)(1 + b), p.seed, u1, u2, u3);
     BounceFwd f;
     bounce_body(ts, trt, np, enc, bo, bd, b == 0 ? 0.0f : POCA_TMIN_BOUNCE, u1, u2, u3, f);
+    V3 ct_pa = zero3();
+    float ct_att = 0.0f;
+    if (AUX) {
+      const float* a = p.ct_aux + (size_t)4 * b * R + io;
+      ct_pa = v3(a[0], a[R], a[2 * (size_t)R]);
+      ct_att = a[3 * (size_t)R];
+    }
     RecGrad g = rec_zero();
-    bounce_bwd(f, bo, bd, bth, b <= first_miss, b == 0, ct_rad, ct_fn, ct_ft, ct_o, ct_d,
-               ct_thru, g);
+    bounce_bwd<AUX>(f, bo, bd, bth, b <= first_miss, b == 0, ct_rad, ct_fn, ct_ft, ct_pa, ct_att,
+                    ct_o, ct_d, ct_thru, g);
     acc.add_rec(enc, g);
   }
   float* od = p.out_od;

@@ -129,15 +129,15 @@ _SIGNATURES = {
     # missed offs packed(ptr array) n_planes fills(int array) out stride R | stream
     "poca_stream_expand": [_P, _P, _P, _I, _P, _P, _I, _I, _P],
     "poca_compact_block_lanes": [],
-    # o3 d3 pix samp ts trt hits | 13 cotangent planes | out_tab out_od carry |
+    # o3 d3 pix samp ts trt hits | 13 cotangent planes ct_aux | out_tab out_od carry |
     # R n_pad depth seed smem_acc | stream
-    "poca_mega_bwd": [_P] * 11 + [_P] * 13 + [_P] * 3 + [_I] * 5 + [_P],
-    # n_pad smem_acc | info (registers, local bytes, blocks per SM)
-    "poca_mega_bwd_info": [_I] * 2 + [_P],
-    # o3 d3 tmin tmax geom | out | R n_s n_p n_c n_rep | stream
-    "poca_winner_index": [_P] * 9 + [_P] + [_I] * 5 + [_P],
-    # R n_rep | info (registers, local bytes, blocks per SM, grid)
-    "poca_winner_info": [_I] * 2 + [_P],
+    "poca_mega_bwd": [_P] * 11 + [_P] * 14 + [_P] * 3 + [_I] * 5 + [_P],
+    # n_pad smem_acc aux | info (registers, local bytes, blocks per SM)
+    "poca_mega_bwd_info": [_I] * 3 + [_P],
+    # o3 d3 tmin tmax geom | out | R n_s n_p n_c n_rep tile_rows | stream
+    "poca_winner_index": [_P] * 9 + [_P] + [_I] * 6 + [_P],
+    # R n_rep tile_rows | info (registers, local bytes, blocks per SM, grid)
+    "poca_winner_info": [_I] * 3 + [_P],
     # o3 d3 tmin tmax nodes leaves rows gidx | out | R m n_leaves | stream
     "poca_bvh_winner_index": [_P] * 12 + [_P] + [_I] * 3 + [_P],
     # m n_leaves | info (registers, local bytes, blocks per SM, nodes in shared memory)

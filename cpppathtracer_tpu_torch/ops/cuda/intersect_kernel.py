@@ -18,36 +18,34 @@ from cpppathtracer_tpu_torch.ops.cuda import build as kb
 from cpppathtracer_tpu_torch.types import INF
 
 # The shared memory one block may opt into on sm_90 (227 KB); the launch
-# stages all geometry rows there.
+# stages the geometry rows there, WINNER_TILE_ROWS of them at a time.
 WINNER_SMEM_MAX = 232448
+WINNER_TILE_ROWS = WINNER_SMEM_MAX // 32
 
 
 def ceil8(n: int) -> int:
     return -(-n // 8) * 8
 
 
-def winner_index(counts, o, d, tmin, tmax, geom):
+def winner_index(counts, o, d, tmin, tmax, geom, *, tile_rows=WINNER_TILE_ROWS):
     """Dense grouped winner index i32[R] for planar rays (o, d tuples of
     f32[R]; tmin, tmax f32[R]) over `geom` (:func:`build_geom_rows`);
     0 where nothing is hit.
 
     CUDA tensors launch ``csrc/winner.cu``; CPU tensors take
-    :func:`winner_index_plain`.  A scene whose rows exceed the shared
-    memory of one block raises ValueError on either device, so that a CPU
-    run meets the card's limit."""
+    :func:`winner_index_plain`.  Both search the rows in tiles of
+    `tile_rows` (a multiple of 8, at most WINNER_TILE_ROWS: one block's
+    shared memory on the card), so a scene of any size is searched."""
     dev = tmin.device
-    n_rep = geom.shape[0]
-    if 32 * n_rep > WINNER_SMEM_MAX:
-        raise ValueError(
-            f"winner_index stages {n_rep} geometry rows ({32 * n_rep} bytes) in shared "
-            f"memory; one block holds at most {WINNER_SMEM_MAX} bytes "
-            f"({WINNER_SMEM_MAX // 32} rows): give the scene BVH tables"
-        )
+    if not (8 <= tile_rows <= WINNER_TILE_ROWS and tile_rows % 8 == 0):
+        raise ValueError(f"tile_rows {tile_rows} is not a multiple of 8 in [8, "
+                         f"{WINNER_TILE_ROWS}]")
     if dev.type == "cpu":
-        return winner_index_plain(counts, o, d, tmin, tmax, geom)
+        return winner_t_index_plain(counts, o, d, tmin, tmax, geom, tile_rows)[1]
     if dev.type != "cuda":
         raise ValueError(f"winner_index runs on cuda or cpu tensors, got {dev}")
     r = tmin.shape[0]
+    n_rep = geom.shape[0]
     n_s, n_p, n_c = counts
     f32 = torch.float32
     for k, t in enumerate([*o, *d, tmin, tmax]):
@@ -59,7 +57,7 @@ def winner_index(counts, o, d, tmin, tmax, geom):
     with torch.cuda.device(dev):
         err = kb.library().poca_winner_index(
             *[t.data_ptr() for t in (*o, *d, tmin, tmax)], geom.data_ptr(), out.data_ptr(),
-            r, n_s, n_p, n_c, n_rep, kb.stream_handle(tmin),
+            r, n_s, n_p, n_c, n_rep, tile_rows, kb.stream_handle(tmin),
         )
     kb.check(err, "winner_index")
     kb.LAUNCHES["winner_index"] += 1
@@ -93,12 +91,45 @@ def winner_index_plain(counts, o, d, tmin, tmax, geom):
     return winner_t_index_plain(counts, o, d, tmin, tmax, geom)[1]
 
 
-def winner_t_index_plain(counts, o, d, tmin, tmax, geom):
+def winner_t_index_plain(counts, o, d, tmin, tmax, geom, tile_rows=WINNER_TILE_ROWS):
     """(best t f32[R], dense grouped winner index i32[R]) for planar rays,
     with `_winner_kernel`'s formulas: each group is an [objects, rays]
     block reduced by argmin (first minimum), and a group's winner replaces
     the best only when strictly closer, so the lowest grouped index wins
-    ties.  Where nothing is hit the t is INF and the index 0."""
+    ties.  Where nothing is hit the t is INF and the index 0.
+
+    The rows are searched in tiles of `tile_rows` (a multiple of 8), as
+    ``csrc/winner.cu`` stages them: rows [r0, r1) of the grouped layout
+    are again a grouped scene, and a tile's winner replaces the best only
+    when strictly closer, which gives the one-tile search's bits."""
+    n_rep = geom.shape[0]
+    if n_rep <= tile_rows:
+        return _search_rows(counts, o, d, tmin, tmax, geom)
+    if tile_rows < 8 or tile_rows % 8:
+        raise ValueError(f"tile_rows {tile_rows} is not a positive multiple of 8")
+    n_s, n_p, n_c = counts
+    p_row = ceil8(n_s)
+    c_row = p_row + ceil8(n_p)
+    part = lambda lo, hi, base, n: (min(max(lo - base, 0), n), min(max(hi - base, 0), n))
+    r = tmin.shape[0]
+    best_t = torch.full((r,), INF, dtype=torch.float32, device=tmin.device)
+    best_i = torch.zeros((r,), dtype=torch.int32, device=tmin.device)
+    for r0 in range(0, n_rep, tile_rows):
+        r1 = min(r0 + tile_rows, n_rep)
+        (s_lo, s_hi), (p_lo, p_hi), (c_lo, c_hi) = (
+            part(r0, r1, 0, n_s), part(r0, r1, p_row, n_p), part(r0, r1, c_row, n_c))
+        ns, np_, nc = s_hi - s_lo, p_hi - p_lo, c_hi - c_lo
+        t, w = _search_rows((ns, np_, nc), o, d, tmin, tmax, geom[r0:r1])
+        w = torch.where(w < ns, w + s_lo,
+                        torch.where(w < ns + np_, w - ns + n_s + p_lo,
+                                    w - ns - np_ + n_s + n_p + c_lo))
+        better = t < best_t
+        best_t, best_i = torch.where(better, t, best_t), torch.where(better, w, best_i)
+    return best_t, best_i
+
+
+def _search_rows(counts, o, d, tmin, tmax, geom):
+    """:func:`winner_t_index_plain` over all of `geom`'s rows at once."""
     n_s, n_p, n_c = counts
     ns8, np8 = ceil8(n_s), ceil8(n_p)
     ox, oy, oz = (v[None, :] for v in o)

@@ -15,6 +15,12 @@ unchanged; ct_first_n and ct_first_t enter at bounce 0 only.  The replay's
 hit rule is the saved sign (`enc >= 0`), as in the JAX package's default
 backward; its Pallas kernel also requires the recomputed t < INF, which the
 port does not, so the kernel and its plain version agree with the replay.
+
+A textured sample also passes `ct_aux`, the cotangents of the replay's
+per-bounce aux outputs (the hit position and the attenuation mask times
+the score-function weight): the Pallas kernel's `ct_pos` input, and the
+`ct_att` that it lacks, so that this form computes the JAX package's
+default textured backward (its replay's VJP) on the card.
 """
 
 from __future__ import annotations
@@ -36,14 +42,20 @@ SMEM_ACC_MAX_PAD = 1024
 MAX_PAD = 2048
 
 
-def mega_bwd(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, with_carry=False):
+def mega_bwd(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, ct_aux=None,
+             with_carry=False):
     """Cotangents of one megakernel sample.
 
     o, d: planar primary rays (tuples of f32[R]); pixel_idx, sample_idx
     i32[R]; seed an int; ts f32[13, n_pad], trt f32[4, n_pad]
     (`build_tables_T`); hits i32[depth, R], the saved winner planes;
     ct: the 13 f32[R] cotangent planes of (rad vec3, miss_dir vec3,
-    miss_thru vec3, first_n vec3, first_t) (`missed` has none).
+    miss_thru vec3, first_n vec3, first_t) (`missed` has none);
+    ct_aux: None, or for a textured sample the 4 * depth f32[R] cotangent
+    planes of its aux outputs in ``replay_vjp``'s order (per bounce pos
+    vec3, then att), a sequence or one f32[4 * depth, R] tensor.  Those
+    of a bounce that missed must be zero (the texture epilogue's are):
+    the kernel does not read them.
 
     Returns (ct_ts f32[13, n_pad], ct_trt f32[4, n_pad], ct_o vec3, ct_d
     vec3).  With `with_carry`, also the rebuilt final carry (o vec3, d
@@ -56,7 +68,7 @@ def mega_bwd(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, with_carry
     dev = pixel_idx.device
     if dev.type == "cpu":
         return mega_bwd_plain(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct,
-                              with_carry=with_carry)
+                              ct_aux=ct_aux, with_carry=with_carry)
     if dev.type != "cuda":
         raise ValueError(f"mega_bwd runs on cuda or cpu tensors, got {dev}")
 
@@ -76,6 +88,9 @@ def mega_bwd(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, with_carry
     kb.require(ts, "ts", f32, (13, n_pad), dev)
     kb.require(trt, "trt", f32, (4, n_pad), dev)
     kb.require(hits, "hits", i32, (depth, r), dev)
+    if ct_aux is not None:
+        ct_aux = ct_aux if torch.is_tensor(ct_aux) else torch.stack(tuple(ct_aux))
+        kb.require(ct_aux, "ct_aux", f32, (4 * depth, r), dev)
     if not 1 <= depth <= 32:
         raise ValueError(f"depth {depth} is outside [1, 32] (MAX_RECURSION_DEPTH_SET)")
     if n_pad > MAX_PAD:
@@ -88,7 +103,7 @@ def mega_bwd(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, with_carry
         err = kb.library().poca_mega_bwd(
             *[t.data_ptr() for t in planes], pixel_idx.data_ptr(), sample_idx.data_ptr(),
             ts.data_ptr(), trt.data_ptr(), hits.data_ptr(),
-            *[t.data_ptr() for t in ct],
+            *[t.data_ptr() for t in ct], kb.ptr(ct_aux),
             out_tab.data_ptr(), out_od.data_ptr(), kb.ptr(carry),
             r, n_pad, depth, ctypes.c_int32(int(seed) & 0xFFFFFFFF).value,
             int(n_pad <= SMEM_ACC_MAX_PAD), kb.stream_handle(pixel_idx),
@@ -101,7 +116,8 @@ def mega_bwd(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, with_carry
     return out
 
 
-def mega_bwd_plain(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, with_carry=False):
+def mega_bwd_plain(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, ct_aux=None,
+                   with_carry=False):
     """Plain PyTorch version of :func:`mega_bwd` (same arguments and
     outputs), on any device: torch autograd of the replay,
     ``ops/mega.py::replay_vjp``."""
@@ -109,5 +125,7 @@ def mega_bwd_plain(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, with
     # imported here, at call time
     from cpppathtracer_tpu_torch.ops.mega import replay_vjp
 
-    return replay_vjp(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct,
+    if ct_aux is not None:
+        ct_aux = tuple(ct_aux.unbind(0)) if torch.is_tensor(ct_aux) else tuple(ct_aux)
+    return replay_vjp(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, ct_aux=ct_aux,
                       with_carry=with_carry)

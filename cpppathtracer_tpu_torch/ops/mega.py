@@ -16,6 +16,20 @@ RNG keys are per (pixel, sample, bounce), so the traced paths are bitwise
 those of the unsplit trace; radiance differs only in the order of its
 float32 sum.
 
+Phase B can also run as the JAX package's static-prefix ladder and second
+split (`ops/mega.py:454-691`): B1 over the first quarter of the packed
+lanes, B2 over the rest with n_alive less that quarter (the kernel traces
+no lane when that is <= 0, in place of JAX's lax.cond, so no count is
+read on the host), and inside B1 two bounces, a second compaction of the
+rays still alive and the remaining bounces over the re-packed quarter
+(POCA_MEGA_PREFIX2=1: over its first half, plus a spill launch over the
+second), expanded back to the quarter.  JAX's switches choose it:
+POCA_MEGA_SPLIT (the split bounce, 0 for none), POCA_MEGA_LADDER and
+POCA_MEGA_SPLIT2 (0 or 1), POCA_MEGA_PREFIX2.  Unset, the ladder follows
+JAX's defaults: off on the CPU, as in JAX's interpret mode; on the card,
+_CARD_LADDER, the faster schedule of ``chip_smoke.py``'s measurement
+(PERF.md).  The second split defaults to on wherever the ladder is.
+
 Backward: the forward saves only the primary rays, the record tables and
 the per-bounce winner planes (i32[depth, R], the winner's grouped index on
 a hit, -1 on a miss).  The replay rebuilds every bounce from the saved
@@ -28,13 +42,18 @@ and layout devices and are not ported.
 Textured scenes (`with_aux`): the forward also returns the kernel's
 per-bounce hit positions and attenuation-on masks, which the texture
 epilogue (``integrator._mega_tex_radiance``) reads.  Their backward is
-torch autograd of ``_replay_outputs(with_aux=True)`` on every device, not
-``mega_bwd``: the replayed mask carries the score-function weight, whose
-cotangent the hand-written backward does not take, so the JAX package
-routes textured samples to its replay the same way (`ops/mega.py:994-996`).
+``mega_bwd(ct_aux=...)``: on the card the kernel's textured instance,
+which takes the cotangents of the replayed positions and of the replayed
+mask (which carries the score-function weight); on the CPU torch autograd
+of ``_replay_outputs(with_aux=True)``.  That is the function the JAX
+package computes for textured samples by autograd of its replay
+(`ops/mega.py:993-996`): its Pallas backward takes the positions'
+cotangents but not the mask's.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -48,6 +67,11 @@ from cpppathtracer_tpu_torch.utils.rng import uniforms4
 
 _MEGA_TILE = 1024
 _SPLIT = 2
+# The ladder's default on the card (module docstring): the single phase-B
+# launch measured faster on the H100 (PERF.md).
+_CARD_LADDER = False
+# mega_trace.cu's lanes per block: the unit of POCA_MEGA_PREFIX2's prefix
+_LANE_BLOCK = 128
 
 
 def _pick_tile(r: int) -> int:
@@ -60,12 +84,45 @@ def _pick_tile(r: int) -> int:
 
 def _split_plan(r: int, depth: int) -> int:
     """The bounce at which the trace splits, 0 for an unsplit trace: the
-    JAX package's rule (`ops/mega.py:329-348`), which splits at bounce 2
-    when phase B has at least two bounces and R spans at least four
-    megakernel tiles."""
+    JAX package's rule (`ops/mega.py:329-348`), which splits at bounce S
+    (POCA_MEGA_SPLIT, default 2; 0 turns the split off) when phase B has
+    at least two bounces and R spans at least four megakernel tiles."""
+    env = os.environ.get("POCA_MEGA_SPLIT", "")
+    split = int(env) if env.lstrip("-").isdigit() else _SPLIT
     tile = min(_MEGA_TILE, _pick_tile(r))
     r_pad = -(-r // tile) * tile
-    return _SPLIT if depth - _SPLIT >= 2 and r_pad >= 4 * tile else 0
+    return split if split > 0 and depth - split >= 2 and r_pad >= 4 * tile else 0
+
+
+def _switch(name: str, default: bool) -> bool:
+    """A 0/1 environment switch; unset or any other value gives `default`."""
+    env = os.environ.get(name, "")
+    return env == "1" if env in ("0", "1") else default
+
+
+def _ladder_plan(r: int, depth: int, split: int, device) -> tuple[int, bool, int]:
+    """Phase B's schedule, JAX's rule (`ops/mega.py:336-348`, `:454-527`):
+    (r_q, split2, r_q2).  r_q, the ladder's quarter prefix (0: one phase-B
+    launch over every packed lane); split2, whether B1 splits again after
+    two bounces; r_q2, the prefix of stage 2 under POCA_MEGA_PREFIX2=1 (r_q
+    otherwise): half the quarter, in whole kernel blocks."""
+    tile = min(_MEGA_TILE, _pick_tile(r))
+    r_pad = -(-r // tile) * tile
+    chunk = next((c for c in (8192, 4096, 2048, 1024) if r_pad >= 4 * c or
+                  (c == 1024 and r_pad >= c)), 0)
+    if chunk and r_pad % chunk:
+        r_pad = -(-r_pad // chunk) * chunk
+    r_q = (r_pad // 4) // tile * tile
+    ladder = r_q >= tile and r_pad - r_q >= tile and r_q < r and _switch(
+        "POCA_MEGA_LADDER", _CARD_LADDER and torch.device(device).type == "cuda")
+    if not ladder:
+        return 0, False, 0
+    chunk2 = next((c for c in (chunk, 4096, 2048, 1024) if c <= chunk and r_q % c == 0), 0)
+    split2 = depth - split >= 4 and chunk2 > 0 and _switch("POCA_MEGA_SPLIT2", True)
+    r_q2 = r_q
+    if split2 and os.environ.get("POCA_MEGA_PREFIX2", "") == "1":
+        r_q2 = (r_q // 2) // _LANE_BLOCK * _LANE_BLOCK or r_q
+    return r_q, split2, r_q2
 
 
 # ------------------------------------------------------------------ replay
@@ -149,9 +206,8 @@ def replay_vjp(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, ct_aux=N
     (rad, miss_dir, miss_thru, first_n, first_t) and, for a textured
     sample, `ct_aux`, those of its 4 * depth aux planes.  With
     `with_carry`, also the rebuilt final carry (o, d, thru, missed).
-    Without aux it is ``mega_bwd_plain``, the plain version of
-    ``csrc/mega_bwd.cu``; with aux, the backward of every textured
-    sample."""
+    It is ``mega_bwd_plain``, the plain version of ``csrc/mega_bwd.cu``,
+    in both forms."""
     with_aux = ct_aux is not None
     leaves = [t.detach().requires_grad_() for t in (*o, *d, ts, trt)]
     with torch.enable_grad():
@@ -178,20 +234,49 @@ def replay_vjp(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, ct_aux=N
 
 def _trace(o, d, pix, samp, seed, depth, geom, ts, trt, counts, with_aux=False):
     """The megakernel's forward of one sample, split where `_split_plan`
-    says.  Returns (rad, miss_dir, miss_thru, missed, first_n, first_t,
-    hit planes, aux planes: 4 per bounce (pos vec3, att) with `with_aux`,
-    else none).  Phase B's aux planes return to their pixels with fill
-    0.0, as its other outputs do (JAX `ops/mega.py:710-717`), in calls of
-    at most MAX_PLANES planes over the same offs."""
+    says, its phase B scheduled as `_ladder_plan` says.  Returns (rad,
+    miss_dir, miss_thru, missed, first_n, first_t, hit planes, aux planes:
+    4 per bounce (pos vec3, att) with `with_aux`, else none).  Phase B's
+    aux planes return to their pixels with fill 0.0, as its other outputs
+    do (JAX `ops/mega.py:710-717`), in calls of at most MAX_PLANES planes
+    over the same offs."""
     trace = lambda *a, **kw: mega_trace(*a, geom, ts, trt, counts=counts, with_aux=with_aux,
                                         **kw)
     flat_aux = lambda aux: [c for pos, att in aux for c in (*pos, att)] if with_aux else []
-    split = _split_plan(pix.shape[0], depth)
+    r = pix.shape[0]
+    split = _split_plan(r, depth)
     if not split:
         rad, miss_dir, miss_thru, missed, first_n, first_t, hit_idx, aux = trace(
             o, d, pix, samp, seed, depth=depth
         )
         return rad, miss_dir, miss_thru, missed, first_n, first_t, hit_idx, flat_aux(aux)
+
+    def run(planes, n_alive, depth_b, start, with_o=False):
+        """Bounces [start, start + depth_b) of packed lanes (pix, samp, o3,
+        d3, thru3, alive mask): the trace's outputs as planes (rad3, miss_dir3,
+        miss_thru3, missed, hits, aux), and the final origin with `with_o`."""
+        out = trace(tuple(planes[2:5]), tuple(planes[5:8]), planes[0], planes[1], seed,
+                    depth=depth_b, start_bounce=start, thru=tuple(planes[8:11]),
+                    n_alive=n_alive, alive_mask=planes[11], with_o=with_o)
+        flat = [*out[0], *out[1], *out[2], out[3], *out[6], *flat_aux(out[7])]
+        return (flat, out[8]) if with_o else flat
+
+    def expand(missed, offs, planes, nb):
+        """Packed phase outputs (as `run` gives them, nb bounces) back to
+        their lanes, misses filled with 0.0 and hit planes with -1."""
+        back = stream_expand(missed, offs, planes[:10 + nb], [0.0] * 10 + [-1] * nb)
+        aux = planes[10 + nb:]
+        for k in range(0, len(aux), MAX_PLANES):
+            part = aux[k:k + MAX_PLANES]
+            back += stream_expand(missed, offs, part, [0.0] * len(part))
+        return back
+
+    def halves(planes, n_alive, cut, depth_b, start, first=None):
+        """`run` over lanes [0, cut) (or `first` there) and [cut, R), the
+        second with n_alive - cut, joined."""
+        head = (first or run)([p[:cut] for p in planes], n_alive, depth_b, start)
+        tail = run([p[cut:] for p in planes], n_alive - cut, depth_b, start)
+        return [torch.cat((a, b)) for a, b in zip(head, tail)]
 
     (rad_a, d_a, thru_a, missed_a, first_n, first_t, hit_a, aux_a, o_a) = trace(
         o, d, pix, samp, seed, depth=split, with_o=True
@@ -200,18 +285,34 @@ def _trace(o, d, pix, samp, seed, depth, geom, ts, trt, counts, with_aux=False):
         missed_a, [pix, samp, *o_a, *d_a, *thru_a, missed_a]
     )
     nb = depth - split
-    rad_b, md_b, mt_b, missed_b, _, _, hit_b, aux_b = trace(
-        tuple(packed[2:5]), tuple(packed[5:8]), packed[0], packed[1], seed,
-        depth=nb, start_bounce=split, thru=tuple(packed[8:11]),
-        n_alive=n_alive, alive_mask=packed[11],
-    )
-    back = stream_expand(
-        missed_a, offs, [*rad_b, *md_b, *mt_b, missed_b, *hit_b], [0.0] * 10 + [-1] * nb
-    )
-    aux_b = flat_aux(aux_b)
-    for k in range(0, len(aux_b), MAX_PLANES):
-        part = aux_b[k:k + MAX_PLANES]
-        back += stream_expand(missed_a, offs, part, [0.0] * len(part))
+    r_q, split2, r_q2 = _ladder_plan(r, depth, split, pix.device)
+
+    def nested(planes, n_alive_b, depth_b, start):
+        """B1 with the second split: two bounces, a compaction of the lanes
+        still alive, the rest on the re-packed lanes (over [0, r_q2) and
+        [r_q2, r_q) when r_q2 < r_q), expanded back (JAX `run_b_nested`)."""
+        one, o2 = run(planes, n_alive_b, 2, start, with_o=True)
+        lane = torch.arange(planes[0].shape[0], device=planes[0].device)
+        alive2 = (lane < n_alive_b) & (planes[11] == 0.0) & (one[9] == 0.0)
+        mask2 = (~alive2).to(torch.float32)
+        packed2, offs2, n_alive2 = stream_compact(mask2, [*planes[:2], *o2, *one[3:9], mask2])
+        nb2 = depth_b - 2
+        if r_q2 < r_q:
+            two = halves(packed2, n_alive2, r_q2, nb2, start + 2)
+        else:
+            two = run(packed2, n_alive2, nb2, start + 2)
+        back = expand(mask2, offs2, two, nb2)
+        live2 = mask2 == 0.0
+        return ([one[k] + back[k] for k in range(3)]
+                + [torch.where(live2, back[k], one[k]) for k in range(3, 9)]
+                + [one[9] + back[9]] + one[10:12] + back[10:10 + nb2]
+                + one[12:] + back[10 + nb2:])
+
+    if r_q:
+        b = halves(packed, n_alive, r_q, nb, split, first=nested if split2 else None)
+    else:
+        b = run(packed, n_alive, nb, split)
+    back = expand(missed_a, offs, b, nb)
     a_dead = missed_a > 0.0
     rad = tuple(rad_a[k] + back[k] for k in range(3))
     miss_dir = tuple(torch.where(a_dead, d_a[k], back[3 + k]) for k in range(3))
@@ -230,9 +331,8 @@ class MegaSample(torch.autograd.Function):
     first_t (14 f32[R]), the winner planes i32[depth, R] and, with
     `with_aux`, 4 * depth aux planes f32[R] (pos vec3, att per bounce);
     missed and the winner planes carry no gradient.  The backward returns
-    the cotangents of o, d, ts and trt: through :func:`mega_bwd`, or for
-    `with_aux` through torch autograd of :func:`_replay_outputs` (see the
-    module's docstring).
+    the cotangents of o, d, ts and trt through :func:`mega_bwd`, with the
+    aux planes' cotangents for `with_aux` (see the module's docstring).
     """
 
     @staticmethod
@@ -253,11 +353,9 @@ class MegaSample(torch.autograd.Function):
     def backward(ctx, *ct):
         ox, oy, oz, dx, dy, dz, pix, samp, ts, trt, hits = ctx.saved_tensors
         cts = [c.contiguous() for c in ct[:9] + ct[10:14]]  # missed has none
-        args = ((ox, oy, oz), (dx, dy, dz), pix, samp, ctx.seed, ts, trt, hits, cts)
-        if ctx.with_aux:  # the reference's route for textured samples (module docstring)
-            ct_ts, ct_trt, ct_o, ct_d = replay_vjp(*args, ct_aux=ct[15:])
-        else:
-            ct_ts, ct_trt, ct_o, ct_d = mega_bwd(*args)
+        ct_aux = torch.stack(ct[15:]) if ctx.with_aux else None
+        ct_ts, ct_trt, ct_o, ct_d = mega_bwd((ox, oy, oz), (dx, dy, dz), pix, samp, ctx.seed, ts,
+                                             trt, hits, cts, ct_aux=ct_aux)
         return (*ct_o, *ct_d, ct_ts, ct_trt) + (None,) * 7
 
 

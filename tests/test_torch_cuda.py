@@ -413,7 +413,133 @@ def test_mega_sample_grads_kernel_vs_plain_on_card(dev, monkeypatch):
         assert abs(float(a.norm() / b.norm()) - 1) < 1e-3
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,aux", [(64, "random"), (1024, "random"), (1024, "no_att")])
+def test_mega_bwd_aux_matches_plain_on_card(dev, width, aux):
+    """The textured instance (ct_aux: per bounce ct_pos vec3 and ct_att,
+    random, zero on the bounces that missed as the texture epilogue gives
+    them; "no_att" also zero on every att plane, the Pallas kernel's
+    ct_pos form) against mega_bwd_plain(ct_aux=...) on the demo scene at
+    depth 8, under _check_bwd's bounds; the aux cotangents move the table
+    cotangents, and the rebuilt carry is mega_trace's."""
+    gs = group_scene(demo_scene(0).build(device=dev))
+    args, out = _bwd_inputs(dev, gs, width, 8)
+    hits = args[7]
+    g = torch.Generator(device=dev).manual_seed(1)
+    ct_aux = torch.randn((32, width * width), device=dev, generator=g)
+    ct_aux = torch.where(hits.repeat_interleave(4, 0) >= 0, ct_aux, 0.0)
+    if aux == "no_att":
+        ct_aux[3::4] = 0.0
+    kb.reset_launches()
+    got = mega_bwd(*args, ct_aux=ct_aux, with_carry=True)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["mega_bwd"] == 1
+    ref = mega_bwd_plain(*args, ct_aux=ct_aux)
+    _check_bwd(got, ref)
+    base = mega_bwd(*args)
+    assert float((got[0] - base[0]).norm() / base[0].norm()) > 1e-3
+    carry = got[4]
+    for a, b in zip([*carry[0], *carry[1], *carry[2], carry[3]], [*out[8], *out[1], *out[2], out[3]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_textured_sample_grads_kernel_vs_plain_on_card(dev, monkeypatch):
+    """A textured render's gradients (kd, emission, the texture stack) at
+    256^2 x 2 spp x d8 through the kernel's textured instance (one
+    mega_bwd launch a sample) and through the plain backward (autograd of
+    the replay): cosine > 0.9999 and norms within 1e-3."""
+    import dataclasses
+
+    from cpppathtracer_tpu_torch.integrator import render_radiance
+    from cpppathtracer_tpu_torch.ops.texture import procedural_sky
+    from cpppathtracer_tpu_torch.types import PrimitiveType
+
+    scene = demo_scene(0).build(device=dev)
+    tid = torch.where(scene.prim_type == PrimitiveType.CYLINDER, 0, -1).to(torch.int32)
+    scene = dataclasses.replace(scene, tex_id=tid)
+    tex = torch.from_numpy(procedural_sky(64, 64, seed=1)[None]).to(dev)
+    sky = torch.from_numpy(procedural_sky(64, 64)).to(dev)
+    cam = Camera.make(256, 256, origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0), device=dev)
+
+    def grads():
+        kd = scene.kd.clone().requires_grad_()
+        em = scene.emission.clone().requires_grad_()
+        t = tex.clone().requires_grad_()
+        s = scene.with_material_params({"kd": kd, "emission": em})
+        rad, _, _ = render_radiance(s, cam, sky, spp=2, max_depth=8, tex_stack=t)
+        return torch.autograd.grad((rad * rad).sum(), (kd, em, t))
+
+    kb.reset_launches()
+    k = grads()
+    assert kb.LAUNCHES["mega_bwd"] == 2 and kb.LAUNCHES["mega_trace_aux"] == 4
+    monkeypatch.setattr(mega, "mega_bwd", mega_bwd_plain)
+    p = grads()
+    for a, b in zip(k, p):
+        a, b = a.flatten().double(), b.flatten().double()
+        assert float(b.norm()) > 0
+        assert float(a @ b / (a.norm() * b.norm())) > 0.9999
+        assert abs(float(a.norm() / b.norm()) - 1) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_aux", [False, True])
+def test_ladder_and_second_split_on_card(dev, monkeypatch, with_aux):
+    """One 1024^2 x d8 sample of the demo scene through the kernels under
+    POCA_MEGA_LADDER=1 with the second split, without it, and with
+    POCA_MEGA_PREFIX2=1, against the unsplit trace (POCA_MEGA_SPLIT=0):
+    hit planes, missed and the first-hit buffers bitwise equal; radiance
+    within 5e-7; the ladder alone and PREFIX2 bitwise equal to the
+    schedules they partition (the single phase-B launch, the second
+    split); aux planes bitwise on every bounce that hit."""
+    gs = group_scene(demo_scene(0).build(device=dev))
+    cam = Camera.make(1024, 1024, origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0),
+                      device=dev)
+    pix = torch.arange(1024 * 1024, dtype=torch.int32, device=dev)
+    switches = ("POCA_MEGA_SPLIT", "POCA_MEGA_LADDER", "POCA_MEGA_SPLIT2", "POCA_MEGA_PREFIX2")
+
+    def sample(**env):
+        for k in switches:
+            monkeypatch.delenv(k, raising=False)
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        kb.reset_launches()
+        with torch.no_grad():
+            out = mega.mega_sample(gs, cam, pix, 1, 0, 8, with_aux=with_aux)
+        torch.cuda.synchronize()
+        return out, dict(kb.LAUNCHES)
+
+    flat = lambda s: [*s[0], *s[1], *s[2], s[3], *s[4], s[5], *s[6]] + (
+        [c for p, a in s[7] for c in (*p, a)] if with_aux else [])
+    paths = lambda s: [s[3], *s[4], s[5], *s[6]]
+    bits = lambda t: t.view(torch.int32)
+    s0, _ = sample(POCA_MEGA_SPLIT="0")
+    one, _ = sample(POCA_MEGA_LADDER="0")
+    lad, n_lad = sample(POCA_MEGA_LADDER="1", POCA_MEGA_SPLIT2="0")
+    sp2, n_sp2 = sample(POCA_MEGA_LADDER="1", POCA_MEGA_SPLIT2="1")
+    pre, n_pre = sample(POCA_MEGA_LADDER="1", POCA_MEGA_SPLIT2="1", POCA_MEGA_PREFIX2="1")
+    name = "mega_trace_aux" if with_aux else "mega_trace"
+    assert (n_lad[name], n_sp2[name], n_pre[name]) == (3, 4, 5)
+    assert (n_lad["stream_compact"], n_sp2["stream_compact"]) == (1, 2)
+    assert all(torch.equal(bits(a), bits(b)) for a, b in zip(flat(lad), flat(one)))
+    assert all(torch.equal(bits(a), bits(b)) for a, b in zip(flat(pre), flat(sp2)))
+    assert all(torch.equal(a, b) for a, b in zip(paths(sp2), paths(s0)))
+    for k in range(3):
+        assert torch.allclose(sp2[0][k], s0[0][k], rtol=5e-7, atol=5e-7)
+    if with_aux:
+        for b, ((p1, a1), (p0, a0)) in enumerate(zip(sp2[7], s0[7])):
+            hit = s0[6][b] >= 0
+            assert all(torch.equal(x[hit], y[hit]) for x, y in zip((*p1, a1), (*p0, a0)))
+
+
 # ------------------------------------------------- the wavefront path's winners
+
+
+def _take(ray, lanes):
+    """The planar rays (o, d, tmin, tmax) at `lanes`, contiguous."""
+    o, d, tmin, tmax = ray
+    pick = lambda t: t[lanes].contiguous()
+    return tuple(map(pick, o)), tuple(map(pick, d)), pick(tmin), pick(tmax)
 
 
 def _primaries(dev, n, width):
@@ -606,17 +732,58 @@ def test_winner_index_exact_ties_on_card(dev):
 
 
 @pytest.mark.gpu
-def test_winner_index_refuses_rows_beyond_shared_memory(dev):
-    """A scene whose geometry rows exceed one block's shared memory raises
-    a ValueError that names the limit, and launches nothing."""
-    from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import WINNER_SMEM_MAX, winner_index
+def test_winner_index_past_one_tile_on_card(dev):
+    """A scene of 14,008 geometry rows (8,000 spheres, 1 platform and
+    6,000 cylinders), past the 7,264 one block stages, on 8,192 + 5 random
+    rays: the launch searches it in two tiles (the first ends inside the
+    spheres) and equals the plain search over one tile bitwise."""
+    from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import (
+        WINNER_TILE_ROWS, winner_index, winner_t_index_plain,
+    )
 
-    n = WINNER_SMEM_MAX // 32 + 8
-    ray = _primaries(dev, 1024, 16)
+    rng = np.random.RandomState(6)
+    b = SceneBuilder()
+    for _ in range(8000):
+        b.add_sphere(tuple(rng.uniform(-80, 80, 3)), float(rng.uniform(0.3, 2.0)))
+    b.add_platform(-81.0)
+    for _ in range(6000):
+        b.add_cylinder(tuple(rng.uniform(-80, 80, 3)), float(rng.uniform(0.3, 2.0)),
+                       float(rng.uniform(0.5, 4.0)))
+    gs = group_scene(b.build(device=dev, bvh=False))
+    geom = build_geom_rows(gs)
+    assert geom.shape[0] == 14008 > WINNER_TILE_ROWS
+    r = 8192 + 5
+    o = rng.uniform(-100, 100, (3, r)).astype(np.float32)
+    d = rng.normal(size=(3, r)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0)
+    f = lambda a: tuple(torch.from_numpy(np.ascontiguousarray(c)).to(dev) for c in a)
+    ray = (f(o), f(d), torch.zeros(r, device=dev), torch.full((r,), INF, device=dev))
     kb.reset_launches()
-    with pytest.raises(ValueError, match=str(WINNER_SMEM_MAX)):
-        winner_index((n, 0, 0), *ray, torch.zeros((n, 8), device=dev))
-    assert kb.LAUNCHES["winner_index"] == 0
+    got = winner_index(gs.counts, *ray, geom)
+    assert kb.LAUNCHES["winner_index"] == 1
+    ref = torch.cat([winner_t_index_plain(gs.counts, *_take(ray, part), geom, 14008)[1]
+                     for part in torch.arange(r, device=dev).split(2048)])
+    assert torch.equal(got, ref)
+    assert float((got > 0).float().mean()) > 0.25
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_rows", [8, 16, 24])
+def test_winner_index_small_tiles_exact_ties_on_card(dev, tile_rows):
+    """tests/torch_scenes.py's exact ties on 2^16 + 3 rays, searched in
+    tiles of 8, 16 or 24 rows (tiles that start and end inside the type
+    groups): bitwise equal to the plain search over one tile, so a later
+    tile takes a winner only when strictly closer."""
+    from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import (
+        winner_index, winner_t_index_plain,
+    )
+
+    gs = group_scene(tie_scene(dev))
+    ray = tie_rays((1 << 16) + 3, dev)
+    geom = build_geom_rows(gs)
+    got = winner_index(gs.counts, *ray, geom, tile_rows=tile_rows)
+    assert torch.equal(got, winner_t_index_plain(gs.counts, *ray, geom, geom.shape[0])[1])
+    assert float((got > 0).float().mean()) > 0.25
 
 
 @pytest.mark.gpu

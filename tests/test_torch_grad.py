@@ -267,7 +267,8 @@ def test_mega_bwd_wrapper_takes_plain_on_cpu():
 @pytest.fixture(scope="module")
 def host_bwd(tmp_path_factory):
     """csrc/mega_bwd.cuh's per-ray body built for the host by g++
-    (tests/mega_bwd_host.cpp)."""
+    (tests/mega_bwd_host.cpp); `ct_aux` f32[4 * depth, R] runs its
+    textured instance."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the backward kernel's body for the host")
@@ -275,13 +276,15 @@ def host_bwd(tmp_path_factory):
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-I", str(CSRC),
                     str(TESTS / "mega_bwd_host.cpp"), "-o", str(lib)], check=True, timeout=120)
     so = ctypes.CDLL(str(lib))
-    so.poca_mega_bwd_host.argtypes = [ctypes.c_void_p] * 27 + [ctypes.c_int] * 4
+    so.poca_mega_bwd_host.argtypes = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 4
     so.poca_mega_bwd_host.restype = ctypes.c_int
 
-    def run(o, d, pix, samp, seed, ts, trt, hits, ct):
+    def run(o, d, pix, samp, seed, ts, trt, hits, ct, ct_aux=None):
         r, n_pad = pix.shape[0], ts.shape[1]
         tab, od, carry = torch.zeros(17, n_pad), torch.zeros(6, r), torch.zeros(10, r)
-        ptrs = [t.data_ptr() for t in (*o, *d, pix, samp, ts, trt, hits, *ct, tab, od, carry)]
+        ptrs = [t.data_ptr() for t in (*o, *d, pix, samp, ts, trt, hits, *ct)]
+        ptrs += [None if ct_aux is None else ct_aux.data_ptr()]
+        ptrs += [t.data_ptr() for t in (tab, od, carry)]
         assert so.poca_mega_bwd_host(*ptrs, r, n_pad, hits.shape[0], seed) == 0
         return tab[:13], tab[13:], od[:3], od[3:], carry
 
@@ -296,6 +299,46 @@ def _lane_close(got, ref, rtol=1e-4, atol=1e-5):
     return ((got - ref).abs().amax(0) <= atol + rtol * scale)
 
 
+def _host_body_case(host_bwd, which, aux=None):
+    """The host build of the body against mega_bwd_plain on one sample of
+    `which` scene, with seeded random cotangents (and, for `aux` "random"
+    or "no_att", random aux cotangents: zero on every bounce that missed,
+    as the texture epilogue gives them, and with "no_att" zero on every
+    att plane), under test_mega_bwd_body_on_host_matches_plain's rules."""
+    if which == "controlled":
+        s = _sample_setup(controlled_scene(), (0.0, 4.0, -14.0), (0.0, 1.5, 0.0), 24, 16, 5)
+    else:
+        s = _sample_setup(j_demo_scene(seed=0).build(), (40.0, 25.0, 40.0), (0.0, 0.0, 0.0),
+                          48, 32, 6, seed=2)
+    r = s["pix"].shape[0]
+    depth = s["hits"].shape[0]
+    args = (s["o"], s["d"], s["pix"], s["samp"], s["seed"], s["ts"], s["trt"], s["hits"])
+    ct = _t(np.random.RandomState(3).normal(size=(13, r)).astype(np.float32))
+    ct_aux = None
+    if aux is not None:
+        ct_aux = _t(np.random.RandomState(4).normal(size=(4 * depth, r)).astype(np.float32))
+        ct_aux = torch.where(s["hits"].repeat_interleave(4, 0) >= 0, ct_aux, 0.0)
+        if aux == "no_att":
+            ct_aux[3::4] = 0.0
+    carry = host_bwd(*args, list(ct), ct_aux)[4]
+    out = s["out"]
+    fwd = torch.stack([*out[8], *out[1], *out[2], out[3]])
+    parted = ((carry - fwd).abs() > 1e-4 * (1.0 + fwd.abs())).any(0)
+    assert parted.float().mean() <= (0.0 if which == "controlled" else 0.005)
+    ct = torch.where(parted, 0.0, ct)
+    if ct_aux is not None:
+        ct_aux = torch.where(parted, 0.0, ct_aux)
+    got = host_bwd(*args, list(ct), ct_aux)
+    ref = mega_bwd_plain(*args, list(ct), ct_aux=ct_aux)
+    for g, p in ((got[2], torch.stack(ref[2])), (got[3], torch.stack(ref[3]))):
+        assert torch.isfinite(g).all()
+        assert _lane_close(g, p).float().mean() >= 0.995
+    bound = 1e-5 if which == "controlled" else 1e-4
+    for g, p in ((got[0], ref[0]), (got[1], ref[1])):
+        assert float((g - p).norm() / p.norm()) <= bound
+    return got, ref
+
+
 @pytest.mark.parametrize("which", ["controlled", "demo"])
 def test_mega_bwd_body_on_host_matches_plain(host_bwd, which):
     """The kernel's hand-derived adjoints, compiled for the host, against
@@ -306,28 +349,21 @@ def test_mega_bwd_body_on_host_matches_plain(host_bwd, which):
     0.5%) get zero cotangents.  Then: each of ct_o and ct_d within rtol
     1e-4 of its lane's scale on at least 99.5% of lanes, and the table
     cotangents within relative L2 1e-5 (controlled) / 1e-4 (demo)."""
-    if which == "controlled":
-        s = _sample_setup(controlled_scene(), (0.0, 4.0, -14.0), (0.0, 1.5, 0.0), 24, 16, 5)
-    else:
-        s = _sample_setup(j_demo_scene(seed=0).build(), (40.0, 25.0, 40.0), (0.0, 0.0, 0.0),
-                          48, 32, 6, seed=2)
-    r = s["pix"].shape[0]
-    args = (s["o"], s["d"], s["pix"], s["samp"], s["seed"], s["ts"], s["trt"], s["hits"])
-    ct = _t(np.random.RandomState(3).normal(size=(13, r)).astype(np.float32))
-    carry = host_bwd(*args, list(ct))[4]
-    out = s["out"]
-    fwd = torch.stack([*out[8], *out[1], *out[2], out[3]])
-    parted = ((carry - fwd).abs() > 1e-4 * (1.0 + fwd.abs())).any(0)
-    assert parted.float().mean() <= (0.0 if which == "controlled" else 0.005)
-    ct = torch.where(parted, 0.0, ct)
-    got = host_bwd(*args, list(ct))
-    ref = mega_bwd_plain(*args, list(ct))
-    for g, p in ((got[2], torch.stack(ref[2])), (got[3], torch.stack(ref[3]))):
-        assert torch.isfinite(g).all()
-        assert _lane_close(g, p).float().mean() >= 0.995
-    bound = 1e-5 if which == "controlled" else 1e-4
-    for g, p in ((got[0], ref[0]), (got[1], ref[1])):
-        assert float((g - p).norm() / p.norm()) <= bound
+    _host_body_case(host_bwd, which)
+
+
+@pytest.mark.parametrize("which,aux", [("controlled", "random"), ("demo", "random"),
+                                       ("controlled", "no_att"), ("demo", "no_att")])
+def test_mega_bwd_aux_body_on_host_matches_plain(host_bwd, which, aux):
+    """The body's textured instance (the aux cotangents: per bounce ct_pos
+    vec3 and ct_att) against mega_bwd_plain(ct_aux=...), under the rules
+    of test_mega_bwd_body_on_host_matches_plain, with random ct_pos and
+    ct_att, and with ct_att = 0 (the Pallas kernel's `ct_pos` form).  The
+    aux cotangents move the result: the table cotangents differ from the
+    untextured instance's by more than the tolerance."""
+    ref = _host_body_case(host_bwd, which, aux)[1]
+    base = _host_body_case(host_bwd, which)[1]
+    assert float((ref[0] - base[0]).norm() / base[0].norm()) > 1e-3
 
 
 # ------------------------------------------------------ (c), (e) end to end

@@ -25,7 +25,9 @@ from cpppathtracer_tpu.models import presets as jpresets
 from cpppathtracer_tpu.models.camera import Camera as JCamera
 from cpppathtracer_tpu.models.scene import SceneBuilder as JSceneBuilder
 from cpppathtracer_tpu.models.scene import demo_scene as j_demo_scene
+from cpppathtracer_tpu.ops import fast as j_fast
 from cpppathtracer_tpu.ops import planar as j_planar
+from cpppathtracer_tpu.ops.mega import _replay_chain as j_replay_chain
 from cpppathtracer_tpu.ops.texture import procedural_sky
 from cpppathtracer_tpu.ops.uv import surface_uv_p as j_surface_uv_p
 from cpppathtracer_tpu.types import MaterialType, PrimitiveType
@@ -39,9 +41,12 @@ from cpppathtracer_tpu_torch.ops.cuda.mega_kernel import (
     mega_smem_bytes,
     mega_trace_plain,
 )
+from cpppathtracer_tpu_torch.ops.cuda.mega_bwd_kernel import mega_bwd
 from cpppathtracer_tpu_torch.ops.uv import surface_uv_p
 
-from test_torch_grad import FIELDS, _agreeing_pixels, _jax_grads, _port_grads
+from test_torch_grad import (
+    FIELDS, _agreeing_pixels, _jax_grads, _lane_close, _port_grads, _rehits, _sample_setup,
+)
 from torch_port_helpers import controlled_scene, port_camera, port_scene, port_sky
 
 torch.set_num_threads(1)
@@ -289,6 +294,70 @@ def test_replay_aux_att_carries_score_weight():
     (g,) = torch.autograd.grad(loss, ts)
     assert float(loss.detach()) == int(loss.detach())
     assert g[9].abs().sum() > 1e-3, g[9]
+
+
+@pytest.mark.parametrize("which", ["controlled", "demo"])
+def test_replay_vjp_with_aux_matches_jax_replay(which):
+    """replay_vjp(ct_aux=...) (mega_bwd_plain's textured form, through the
+    wrapper on CPU tensors) against jax.vjp of the JAX package's replay
+    chain with `with_aux` on the same winner planes, with seeded random
+    cotangents of every output, the 4 x depth aux planes included: the
+    rules of tests/test_torch_grad.py::test_replay_grads_match_jax_replay
+    (ct_o and ct_d per lane within rtol 1e-4, atol 1e-5 on every lane of
+    the controlled scene and 99.5% of the demo's, the demo's re-hit lanes
+    zeroed on both sides; table cotangents within rtol 1e-4, atol 1e-5,
+    or per column relative L2 1e-4 on the demo)."""
+    if which == "controlled":
+        jscene = controlled_scene()
+        s = _sample_setup(jscene, (0.0, 4.0, -14.0), (0.0, 1.5, 0.0), 16, 12, 3)
+        keep = torch.ones(s["pix"].shape[0], dtype=torch.bool)
+    else:
+        jscene = j_demo_scene(seed=0).build()
+        s = _sample_setup(jscene, (130.0, 103.0, 130.0), (0.0, 0.0, 0.0), 32, 24, 3)
+        keep = ~_rehits(s)
+        assert keep.float().mean() >= 0.88
+    r, depth = s["pix"].shape[0], s["hits"].shape[0]
+    rng = np.random.RandomState(1)
+    ct = rng.normal(size=(13, r)).astype(np.float32)
+    ct_aux = rng.normal(size=(4 * depth, r)).astype(np.float32)
+    jgs = j_fast.group_scene(jscene)
+    hits_j = tuple(jnp.asarray(h.numpy()) for h in s["hits"])
+
+    def replay(o, d, tables):
+        gs_ = dataclasses.replace(jgs, table_s=tables[0], table_r=tables[1])
+        z = o[0] * 0.0
+        one = z + 1.0
+        _, d2, thru, rad, _, fn, ft, aux = j_replay_chain(
+            gs_, o, d, (one, one, one), (z, z, z), z < 1.0, hits_j,
+            jnp.asarray(s["pix"].numpy()), jnp.asarray(s["samp"].numpy()), s["seed"], 0, True,
+        )
+        return rad, d2, thru, fn, ft, tuple(aux)
+
+    jv = lambda v: tuple(jnp.asarray(c.numpy()) for c in v)
+    _, vjp = jax.vjp(replay, jv(s["o"]), jv(s["d"]), (jgs.table_s, jgs.table_r))
+
+    def both(keep):
+        c, ca = ct * keep.numpy(), ct_aux * keep.numpy()
+        got = mega_bwd(s["o"], s["d"], s["pix"], s["samp"], s["seed"], s["ts"], s["trt"],
+                       s["hits"], list(_t(c)), ct_aux=_t(ca))
+        c, ca = [jnp.asarray(x) for x in c], [jnp.asarray(x) for x in ca]
+        aux = tuple((tuple(ca[4 * b:4 * b + 3]), ca[4 * b + 3]) for b in range(depth))
+        ref = vjp((tuple(c[0:3]), tuple(c[3:6]), tuple(c[6:9]), tuple(c[9:12]), c[12], aux))
+        return got, ref
+
+    got, (go, gd, _) = both(keep)
+    lanes = [_lane_close(torch.stack(g), _t(np.stack(g_j))) for g, g_j in ((got[2], go), (got[3], gd))]
+    close = lanes[0] & lanes[1]
+    assert close.float().mean() >= (1.0 if which == "controlled" else 0.995)
+    got, (_, _, (g_ts, g_trt)) = both(keep & close)
+    na = sum(s["gs"].counts)
+    for g, g_j in ((got[0], g_ts), (got[1], g_trt)):
+        g, g_j = g.numpy().T[:na], np.asarray(g_j)[:na]
+        if which == "controlled":
+            np.testing.assert_allclose(g, g_j, rtol=1e-4, atol=1e-5)
+        else:
+            err = np.linalg.norm(g - g_j, axis=0) / np.maximum(np.linalg.norm(g_j, axis=0), 1e-30)
+            assert err.max() <= 1e-4, err
 
 
 def test_mega_textured_reflectivity_grad_matches_jax(monkeypatch):
