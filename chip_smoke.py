@@ -38,8 +38,12 @@ NumPy build, intersect_bvh against the skip-pointer walk, refit against a
 rebuild), then phase 11: the megakernel's backward in its textured form
 (mega_bwd(ct_aux=...)) against its plain version, the phase-B schedules
 of JAX's ladder and second split against the single launch, and route A
-on big_scene(16384), whose rows the dense launch stages in tiles; and
-prints:
+on big_scene(16384), whose rows the dense launch stages in tiles, then
+phase 12: the bench entry point (``python -m cpppathtracer_tpu_torch
+bench`` and ``python bench_torch.py`` in subprocesses, and
+``bench.build_bench``'s step against phase 5's) and the dense-vs-BVH
+crossover harness (scripts/torch_bench_bvh.py at 1024, 2048 and 4096
+objects); and prints:
   - the card's name and power limit (nvidia-smi);
   - one JSON line {"kernels": [...]}: beside the keys every kernel has,
     only numbers this run measured, read from the built kernels or had the
@@ -506,17 +510,12 @@ def edge_band(gs, ray, idx):
 
 def loss_grads(scene, camera, sky, spp, depth, tex=None):
     """bench.py's loss, sum(rad^2), and its gradients w.r.t. kd and
-    emission (and the texture stack `tex` when given)."""
-    from cpppathtracer_tpu_torch.integrator import render_radiance
+    emission (and the texture stack `tex` when given), as the port's bench
+    step computes them: (loss, g_kd, g_emission[, g_tex])."""
+    from cpppathtracer_tpu_torch.bench import train_step
 
-    kd = scene.kd.clone().requires_grad_()
-    em = scene.emission.clone().requires_grad_()
-    leaves = [kd, em] + ([] if tex is None else [tex.clone().requires_grad_()])
-    s = scene.with_material_params({"kd": kd, "emission": em})
-    rad, _, _ = render_radiance(s, camera, sky, spp=spp, max_depth=depth, seed=0,
-                                tex_stack=None if tex is None else leaves[2])
-    loss = (rad * rad).sum()
-    return (loss.detach(), *torch.autograd.grad(loss, leaves))
+    loss, grads = train_step(scene, camera, sky, spp, depth, tex_stack=tex)
+    return (loss, *grads.values())
 
 
 def trace_planes(out):
@@ -1766,9 +1765,112 @@ def ladder_phase(dev, scene, camera, sky):
                              f"than {other}")
 
 
+def same_fields(a, b):
+    """Every field of two dataclasses equal, tensors bitwise."""
+    return all(torch.equal(bits(x), bits(y)) if isinstance(x, torch.Tensor) else x == y
+               for x, y in ((getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)))
+
+
+def bench_phase(dev, card, scene, camera, sky, step_ref):
+    """Phase 12: the port's bench entry point and the crossover harness.
+    (a) ``python -m cpppathtracer_tpu_torch bench`` and ``python
+    bench_torch.py`` in subprocesses: rc 0, exactly one stdout line, JSON
+    with metric / value / unit / device and no vs_baseline, and value equal
+    to 1024^2 x 64 x 8 over the mean timed step that its stderr prints,
+    within that print's rounding.  (b) In-process,
+    ``bench.build_bench(1024, 1024, 64, 8, "cuda")``: its scene, camera and
+    sky bitwise equal to phase 5's, its step's launches those of the
+    training step, its loss bitwise equal to phase 5's ``loss_grads``
+    (`step_ref`) and the kd and emission gradients within a relative L2
+    error of 1e-4 (mega_bwd's float atomics add the table cotangents in
+    another order on every run, so they are held as compare_bwd holds
+    table rows; whether they came out bitwise is logged).  (c) The step's
+    ms, M rays/s and peak memory on a [bench] line.  (d)
+    ``scripts/torch_bench_bvh.py`` at 1024, 2048 and 4096 objects (256^2 x
+    1 spp x d2): dense and bvh in every row, mega at 1024 and 2048, and
+    null at 4096, past the megakernel's shared memory."""
+    from cpppathtracer_tpu_torch.bench import build_bench
+    from cpppathtracer_tpu_torch.ops.cuda import build as kb
+
+    repo = Path(__file__).resolve().parent
+    rays = W * H * SPP * DEPTH
+    torch.cuda.empty_cache()  # leave the card to the subprocesses
+    for cmd in ([sys.executable, "-m", "cpppathtracer_tpu_torch", "bench"],
+                [sys.executable, "bench_torch.py"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=600)
+        what = " ".join(cmd[1:])
+        lines = proc.stdout.splitlines()
+        if proc.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"{what}: rc {proc.returncode}, {len(lines)} stdout lines:\n"
+                                 f"{proc.stdout}\n{proc.stderr[-3000:]}")
+        res = json.loads(lines[0])
+        ms = float(re.search(r"([0-9.]+) ms/iter", proc.stderr).group(1))
+        # the printed mean has 3 decimals: value lies within its half-unit
+        lo, hi = rays / ((ms + 5e-4) / 1e3), rays / ((ms - 5e-4) / 1e3)
+        for line in proc.stderr.splitlines():
+            log(f"[bench] {what}: {line}")
+        log(f"[bench] {what}: stdout {lines[0]} ({time.perf_counter() - t0:.1f} s)")
+        if (sorted(res) != ["device", "metric", "unit", "value"] or res["unit"] != "rays/s"
+                or res["metric"] != f"rays/s fwd+bwd {W}x{H}x{SPP}spp d{DEPTH} ({dev.type})"
+                or res["device"] != card or not lo <= res["value"] <= hi):
+            raise AssertionError(f"{what}: unexpected result {res} (card {card}, mean step "
+                                 f"{ms} ms: value in [{lo}, {hi}])")
+
+    step, b_scene, b_camera, b_sky = build_bench(W, H, SPP, DEPTH, dev)
+    same_inputs = (same_fields(b_scene, scene) and same_fields(b_camera, camera)
+                   and torch.equal(bits(b_sky), bits(sky)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kb.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = dict(mega_trace=2 * SPP, mega_trace_aux=0, stream_compact=SPP, stream_expand=SPP,
+                mega_bwd=SPP, winner_index=0, bvh_winner_index=0)
+    same_loss = torch.equal(bits(loss), bits(step_ref[0]))
+    rel = {k: float((g - r).norm() / r.norm()) for (k, g), r in zip(grads.items(), step_ref[1:])}
+    same_g = {k: torch.equal(bits(g), bits(r)) for (k, g), r in zip(grads.items(), step_ref[1:])}
+    log(f"[bench] build_bench step {W}x{H} x {SPP} spp x d{DEPTH} on {card}: {dt * 1e3:.1f} ms, "
+        f"{rays / dt / 1e6:.1f} Mrays/s fwd+bwd, peak {peak_gib:.2f} GiB, launches {launches}")
+    log(f"[check] build_bench against phase 5's loss_grads: scene, camera and sky bitwise "
+        f"{same_inputs}; loss bitwise {same_loss}; gradients bitwise {same_g}, relative L2 {rel}")
+    if launches != want:
+        raise AssertionError(f"the bench step launched {launches}, expected {want}")
+    if not (same_inputs and same_loss and max(rel.values()) <= 1e-4):
+        raise AssertionError("build_bench's step differs from phase 5's loss_grads")
+    del grads, step_ref
+
+    with tempfile.TemporaryDirectory(prefix="poca_bvh_") as tmp:
+        out = Path(tmp) / "crossover.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "scripts/torch_bench_bvh.py", "--sizes",
+                               "1024,2048,4096", "--res", "256", "--spp", "1", "--depth", "2",
+                               "--out", str(out)], cwd=repo, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"torch_bench_bvh.py: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+        res = json.loads(out.read_text())
+    for line in proc.stderr.splitlines() + proc.stdout.splitlines():
+        log(f"[crossover] {line}")
+    log(f"[crossover] {time.perf_counter() - t0:.1f} s; rows {json.dumps(res['rows'])}")
+    for row in res["rows"]:
+        has_mega = row["n_objects"] < 4096
+        if not (row["dense_s"] and row["bvh_s"] and row["dense_busy_ms"] and row["bvh_busy_ms"]
+                and bool(row["mega_s"]) == has_mega and bool(row["mega_busy_ms"]) == has_mega
+                and ("mega_error" in row) != has_mega):
+            raise AssertionError(f"crossover row for N = {row['n_objects']}: {row}")
+    if res["backend"] != "cuda" or res["device"] != card:
+        raise AssertionError(f"crossover ran on {res['backend']} / {res['device']}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
+    from cpppathtracer_tpu_torch.bench import device_label
     from cpppathtracer_tpu_torch.integrator import render_radiance
     from cpppathtracer_tpu_torch.models.camera import Camera
     from cpppathtracer_tpu_torch.models.scene import demo_scene
@@ -1789,11 +1891,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False  # no float32 matmul may round to TF32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()
-    card = smi[0] if smi else "unknown"
+    card = device_label(dev)
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # ---- phase 1: build
@@ -1952,15 +2050,7 @@ def main():
 
     # ---- phase 5: the training path, bench.py:31-54 (fwd+bwd of sum(rad^2), grads for kd
     # and emission) at 1024^2 x 64 spp x d8
-    def train_step(spp):
-        kd = scene.kd.clone().requires_grad_()
-        em = scene.emission.clone().requires_grad_()
-        s = scene.with_material_params({"kd": kd, "emission": em})
-        rad, _, _ = render_radiance(s, camera, sky, spp=spp, max_depth=DEPTH, seed=0)
-        loss = (rad * rad).sum()
-        g_kd, g_em = torch.autograd.grad(loss, (kd, em))
-        return loss.detach(), g_kd, g_em
-
+    train_step = lambda spp: loss_grads(scene, camera, sky, spp, DEPTH)
     train_step(1)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2149,6 +2239,8 @@ def main():
     kernels.append(textured_bwd_phase(dev, trace_args, gs, *tex_bwd))
     ladder_phase(dev, scene, camera, sky)
     kernels.append(route_a_tiled_phase(dev, sky))
+    # ---- phase 12: the bench entry point and the dense-vs-BVH crossover harness
+    bench_phase(dev, card, scene, camera, sky, (loss, g_kd, g_em))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,7 @@ otherwise:
   python -m cpppathtracer_tpu_torch invert  --steps 100 --out-dir inverse_out/
   python -m cpppathtracer_tpu_torch progressive --preset demo --frames 16 --out out.png
   python -m cpppathtracer_tpu_torch interactive --preset demo
+  python -m cpppathtracer_tpu_torch bench   (same as bench_torch.py; one JSON line on stdout)
   python -m cpppathtracer_tpu_torch render --device cpu ...   (the plain versions on the CPU)
 """
 
@@ -170,6 +171,12 @@ def cmd_interactive(args):
     run(scene, camera, sky, max_depth=args.depth or 6, max_frames=args.frames)
 
 
+def cmd_bench(args):
+    from cpppathtracer_tpu_torch.bench import main as bench_main
+
+    bench_main([] if args.device is None else ["--device", args.device])
+
+
 def _size_arg(value: str) -> str:
     try:
         w, h = value.split("x")
@@ -235,6 +242,10 @@ def main(argv=None):
     sp.add_argument("--frames", type=int, default=None,
                     help="stop after N frames (default: run until ESC)")
     sp.set_defaults(fn=cmd_interactive)
+
+    sp = sub.add_parser("bench")
+    device(sp)
+    sp.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     args.fn(args)

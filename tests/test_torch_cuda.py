@@ -414,6 +414,34 @@ def test_mega_sample_grads_kernel_vs_plain_on_card(dev, monkeypatch):
 
 
 @pytest.mark.gpu
+def test_bench_step_matches_loss_grads_on_card(dev):
+    """bench.build_bench at 256^2 x 2 spp x d4 against chip_smoke.loss_grads
+    on inputs built apart: scene, camera and sky bitwise, the step's
+    launches, the loss bitwise; the kd and emission gradients within a
+    relative L2 error of 1e-4, since mega_bwd's float atomics add the table
+    cotangents in another order on every run (csrc/mega_bwd.cu)."""
+    import chip_smoke
+    from cpppathtracer_tpu_torch.bench import build_bench
+    from cpppathtracer_tpu_torch.ops.texture import procedural_sky
+
+    step, scene, camera, sky = build_bench(256, 256, 2, 4, dev)
+    s0 = demo_scene(0).build(device=dev)
+    cam = Camera.make(256, 256, device=dev, **chip_smoke.CAMERA)
+    sky0 = torch.from_numpy(procedural_sky(256, 256)).to(dev)
+    assert chip_smoke.same_fields(scene, s0) and chip_smoke.same_fields(camera, cam)
+    assert torch.equal(sky, sky0)
+    kb.reset_launches()
+    loss, grads = step()
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES == dict(mega_trace=4, mega_trace_aux=0, stream_compact=2, stream_expand=2,
+                               mega_bwd=2, winner_index=0, bvh_winner_index=0)
+    ref = chip_smoke.loss_grads(s0, cam, sky0, 2, 4)
+    assert torch.equal(loss, ref[0])
+    for g, r in zip(grads.values(), ref[1:]):
+        assert torch.isfinite(g).all() and float((g - r).norm() / r.norm()) <= 1e-4
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("width,aux", [(64, "random"), (1024, "random"), (1024, "no_att")])
 def test_mega_bwd_aux_matches_plain_on_card(dev, width, aux):
     """The textured instance (ct_aux: per bounce ct_pos vec3 and ct_att,
