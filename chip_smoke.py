@@ -43,7 +43,10 @@ phase 12: the bench entry point (``python -m cpppathtracer_tpu_torch
 bench`` and ``python bench_torch.py`` in subprocesses, and
 ``bench.build_bench``'s step against phase 5's) and the dense-vs-BVH
 crossover harness (scripts/torch_bench_bvh.py at 1024, 2048 and 4096
-objects); and prints:
+objects), then phase 13: the card twins of the JAX package's video,
+scaling and progressive harnesses (scripts/torch_bench_video.py,
+torch_bench_scaling.py and torch_perf_progressive.py in subprocesses at
+cut sizes, each output checked; ``[harness]`` lines); and prints:
   - the card's name and power limit (nvidia-smi);
   - one JSON line {"kernels": [...]}: beside the keys every kernel has,
     only numbers this run measured, read from the built kernels or had the
@@ -1867,6 +1870,85 @@ def bench_phase(dev, card, scene, camera, sky, step_ref):
         raise AssertionError(f"crossover ran on {res['backend']} / {res['device']}")
 
 
+def run_harness(args):
+    """A measurement harness under scripts/ in a subprocess on the card: rc
+    0 and exactly one stdout line, its JSON; the stderr goes to the log."""
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=repo, capture_output=True, text=True,
+                          timeout=600)
+    what = " ".join(args)
+    for line in proc.stderr.splitlines():
+        log(f"[harness] {line}")
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"{what}: rc {proc.returncode}, {len(lines)} stdout lines:\n"
+                             f"{proc.stdout}\n{proc.stderr[-3000:]}")
+    log(f"[harness] {what}: {lines[0]} ({time.perf_counter() - t0:.1f} s)")
+    return json.loads(lines[0])
+
+
+def harness_phase(card, progressive_ms):
+    """Phase 13: the card twins of the JAX package's video, scaling and
+    progressive harnesses, each in a subprocess at a size cut to keep the
+    script short.  (a) scripts/torch_bench_video.py, 4 frames of 256^2 x 2
+    spp x d8: 4 checksums, the warm-up's frame 0 equal to the timed one,
+    fps > 0, the render without the frame sink no slower than with it.
+    (b) scripts/torch_bench_scaling.py at n = 1 (128^2 x 1 spp x d4), one
+    process and a one-rank NCCL group: efficiency 1.0 in each mode, the
+    in-harness check against the one-card step passed, the two modes'
+    losses within rtol 1e-5.  (c) scripts/torch_perf_progressive.py, 8
+    frames at 1280x720 x 1 spp x d8, denoiser on and off: the denoised
+    ms a frame within a factor of 3 of phase 4's (`progressive_ms`), and
+    device busy time in both."""
+    torch.cuda.empty_cache()  # leave the card to the subprocesses
+    with tempfile.TemporaryDirectory(prefix="poca_harness_") as tmp:
+        out = Path(tmp) / "video.json"
+        summary = run_harness(["scripts/torch_bench_video.py", "--frames", "4", "--size", "256",
+                               "--spp", "2", "--depth", "8", "--out", str(out)])
+        video = json.loads(out.read_text())
+        out = Path(tmp) / "scaling.json"
+        run_harness(["scripts/torch_bench_scaling.py", "--counts", "1", "--tile", "128", "--spp",
+                     "1", "--depth", "4", "--out", str(out)])
+        scaling = json.loads(out.read_text())
+    progressive = run_harness(["scripts/torch_perf_progressive.py", "--frames", "8"])
+
+    sums = video["frame_sha256_16"]
+    log(f"[harness] video: wall {video['wall_s']:.4f} s, render only "
+        f"{video['render_only_wall_s']:.4f} s, one PNG {video['png_ms_per_frame']:.2f} ms, frame 0 "
+        f"alone {video['first_frame_s']:.3f} s, "
+        f"busy {video['busy_ms_per_frame']:.3f} ms a frame, checksums {sums}, warm-up's frame 0 "
+        f"{video['warmup_frame0_sha256_16']}")
+    if not (len(sums) == 4 and sums[0] == video["warmup_frame0_sha256_16"] and summary["fps"] > 0
+            and video["device"] == summary["device"] == card):
+        raise AssertionError(f"video harness: {summary}, {video}")
+    if not video["render_only_wall_s"] <= video["wall_s"]:
+        raise AssertionError(f"video harness: the render without the sink took "
+                             f"{video['render_only_wall_s']} s, with it {video['wall_s']} s")
+
+    rows = {r["mode"]: r for r in scaling["rows"]}
+    for mode, r in rows.items():
+        log(f"[harness] scaling {mode}: step {r['step_s'] * 1e3:.3f} ms, loss {r['loss']!r}, "
+            f"comm {r['comm_step_s'] * 1e3:.4f} ms, dispatch {r['dispatch_s'] * 1e3:.4f} ms, "
+            f"busy {r['busy_ms']:.3f} ms, check {r['check']}")
+    loss1, loss2 = rows["process"]["loss"], rows["procs"]["loss"]
+    if not (sorted(rows) == ["process", "procs"] and scaling["device"] == card
+            and all(r["efficiency"] == 1.0 and r["check"]["ok"] and r["busy_ms"] > 0
+                    for r in rows.values())
+            and rows["procs"]["backend"] == "nccl" and abs(loss2 - loss1) <= 1e-5 * abs(loss1)):
+        raise AssertionError(f"scaling harness: {scaling}")
+
+    settings = {r["denoise"]: r for r in progressive["progressive"]}
+    if sorted(settings) != [False, True]:
+        raise AssertionError(f"progressive harness: {progressive}")
+    ratio = settings[True]["ms_per_frame"] / progressive_ms
+    log(f"[harness] progressive: {settings}; denoised {ratio:.3f}x phase 4's {progressive_ms:.3f} "
+        f"ms/frame")
+    if not (progressive["device"] == card and 1 / 3 <= ratio <= 3
+            and all(r["busy_ms"] > 0 for r in settings.values())):
+        raise AssertionError(f"progressive harness: {progressive} (phase 4: {progressive_ms} ms)")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -2041,8 +2123,9 @@ def main():
         raise AssertionError("progressive frame is not finite")
     if not all(kb.LAUNCHES[k] > 0 for k in FORWARD_KERNELS) or kb.LAUNCHES["mega_bwd"]:
         raise AssertionError(f"progressive loop skipped a kernel: {dict(kb.LAUNCHES)}")
+    progressive_ms = dt_p * 1e3 / 16
     log(f"[progressive] 16 frames 1280x720 x1 spp x d{DEPTH} + denoise: "
-        f"{dt_p * 1e3 / 16:.2f} ms/frame, launches {dict(kb.LAUNCHES)}")
+        f"{progressive_ms:.2f} ms/frame, launches {dict(kb.LAUNCHES)}")
 
     # ---- where a sample's time goes: device time by kernel over 4 samples
     profile_device(lambda: render_radiance(scene, camera, sky, spp=4, max_depth=DEPTH, seed=0),
@@ -2241,6 +2324,8 @@ def main():
     kernels.append(route_a_tiled_phase(dev, sky))
     # ---- phase 12: the bench entry point and the dense-vs-BVH crossover harness
     bench_phase(dev, card, scene, camera, sky, (loss, g_kd, g_em))
+    # ---- phase 13: the video, scaling and progressive harnesses
+    harness_phase(card, progressive_ms)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -92,6 +92,38 @@ def device_label(dev) -> str:
     return f"{torch.cuda.get_device_name(index)}, power limit not read"
 
 
+def profile_busy_ms(fn, device=None):
+    """Device busy ms of one call of fn() under torch.profiler: the summed
+    device time of the kernels, memsets and copies it issues, on the card
+    `device` alone when it names one by index, else on every card; 0.0
+    when the profile holds no device event there (the tracing dropped
+    out).  NCCL's kernels are left out: a collective's kernel occupies the
+    card from its launch until the last rank joins, so its device time
+    holds the other ranks' lateness.  The profile closes after a
+    synchronize of `device` (the current card by default); fn waits for
+    any other card it uses."""
+    from torch.profiler import ProfilerActivity, profile
+
+    index = None if device is None else torch.device(device).index
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(device)
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and (index is None or e.device_index == index)
+               and not e.name.startswith("nccl")) / 1e3
+
+
+def busy_ms(fn, device=None, attempts=3):
+    """:func:`profile_busy_ms`, taken again while a profile holds no device
+    time, up to `attempts` profiles."""
+    for _ in range(attempts):
+        busy = profile_busy_ms(fn, device)
+        if busy > 0:
+            return busy
+    raise RuntimeError("torch.profiler recorded no device time")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="bench", description=__doc__.splitlines()[0])
     p.add_argument("--device", default=None,

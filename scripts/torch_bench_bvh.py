@@ -41,7 +41,7 @@ sys.path.insert(0, REPO)
 
 import torch  # noqa: E402
 
-from cpppathtracer_tpu_torch.bench import device_label  # noqa: E402
+from cpppathtracer_tpu_torch.bench import busy_ms, device_label  # noqa: E402
 from cpppathtracer_tpu_torch.integrator import render_radiance  # noqa: E402
 from cpppathtracer_tpu_torch.models.presets import big_camera, big_scene  # noqa: E402
 from cpppathtracer_tpu_torch.ops.texture import procedural_sky  # noqa: E402
@@ -75,23 +75,6 @@ def time_render(render, sync, iters=3):
         sync()
         best = min(best, time.perf_counter() - t0)
     return best
-
-
-def busy_ms(render, attempts=3):
-    """Device busy ms of one call under torch.profiler: the summed device
-    time of its kernels, memsets and copies.  A profile with no device
-    event (the tracing dropped out) is taken again."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            render()
-            torch.cuda.synchronize()
-        busy = sum(e.device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-        if busy > 0:
-            return busy
-    raise RuntimeError("torch.profiler recorded no device time")
 
 
 def main(argv=None):

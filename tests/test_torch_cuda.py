@@ -920,3 +920,26 @@ def test_stack_bvh_walk_on_card_matches_cpu(dev):
     assert float(cpu.hit.float().mean()) > 0.25
     torch.testing.assert_close(card.t.cpu(), cpu.t, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(card.normal.cpu(), cpu.normal, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_video_harness_on_card(dev, tmp_path):
+    """scripts/torch_bench_video.py at 64^2 x 1 spp x d2 on the card: one
+    stdout line, and frame 0 of the timed orbit bitwise the warm-up's (its
+    PNG's SHA-256): the forward render is deterministic on the card."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    out = tmp_path / "video.json"
+    proc = subprocess.run([sys.executable, "scripts/torch_bench_video.py", "--frames", "3",
+                           "--size", "64", "--spp", "1", "--depth", "2", "--out", str(out)],
+                          cwd=repo, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert len(proc.stdout.splitlines()) == 1, proc.stdout
+    res = json.loads(out.read_text())
+    assert res["backend"] == "cuda" and len(res["frame_sha256_16"]) == 3
+    assert res["frame_sha256_16"][0] == res["warmup_frame0_sha256_16"]
+    assert res["busy_ms_per_frame"] > 0
