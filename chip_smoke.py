@@ -46,7 +46,15 @@ crossover harness (scripts/torch_bench_bvh.py at 1024, 2048 and 4096
 objects), then phase 13: the card twins of the JAX package's video,
 scaling and progressive harnesses (scripts/torch_bench_video.py,
 torch_bench_scaling.py and torch_perf_progressive.py in subprocesses at
-cut sizes, each output checked; ``[harness]`` lines); and prints:
+cut sizes, each output checked; ``[harness]`` lines), then phase 14: the
+compiled serving calls and the denoise kernel (csrc/denoise.cu bitwise
+against its plain version on the 1280x720 frame's buffers and on random
+inputs at odd sizes; ``render_radiance_jit``'s CUDA graphs bitwise against
+``render_radiance`` on the demo, textured, big_scene(16384) and route A
+renders; replays after in-place and value edits with no recapture; 16
+compiled progressive frames bitwise against ``frame_step``, the denoiser on
+and off; each replay's kernels in torch.profiler's records, no more of
+them than the wrappers counted at capture; ``[compiled]`` lines); and prints:
   - the card's name and power limit (nvidia-smi);
   - one JSON line {"kernels": [...]}: beside the keys every kernel has,
     only numbers this run measured, read from the built kernels or had the
@@ -63,6 +71,7 @@ import dataclasses
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1274,7 +1283,7 @@ def entry_points_phase(dev, card, tmp):
     from cpppathtracer_tpu_torch.models.presets import PRESETS
     from cpppathtracer_tpu_torch.models.scene import demo_scene
     from cpppathtracer_tpu_torch.ops.cuda import build as kb
-    from cpppathtracer_tpu_torch.ops.denoise import denoise
+    from cpppathtracer_tpu_torch.ops.cuda.denoise_kernel import denoise
     from cpppathtracer_tpu_torch.ops.texture import procedural_sky
     from cpppathtracer_tpu_torch.parallel import distributed
     from cpppathtracer_tpu_torch.parallel.mesh import make_tile_mesh
@@ -1833,7 +1842,7 @@ def bench_phase(dev, card, scene, camera, sky, step_ref):
     launches = dict(kb.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     want = dict(mega_trace=2 * SPP, mega_trace_aux=0, stream_compact=SPP, stream_expand=SPP,
-                mega_bwd=SPP, winner_index=0, bvh_winner_index=0)
+                mega_bwd=SPP, winner_index=0, bvh_winner_index=0, denoise=0)
     same_loss = torch.equal(bits(loss), bits(step_ref[0]))
     rel = {k: float((g - r).norm() / r.norm()) for (k, g), r in zip(grads.items(), step_ref[1:])}
     same_g = {k: torch.equal(bits(g), bits(r)) for (k, g), r in zip(grads.items(), step_ref[1:])}
@@ -1870,20 +1879,39 @@ def bench_phase(dev, card, scene, camera, sky, step_ref):
         raise AssertionError(f"crossover ran on {res['backend']} / {res['device']}")
 
 
+# a harness subprocess takes 14-36 s on the H100
+HARNESS_TIMEOUT_S = 240
+
+
 def run_harness(args):
     """A measurement harness under scripts/ in a subprocess on the card: rc
-    0 and exactly one stdout line, its JSON; the stderr goes to the log."""
+    0 and exactly one stdout line, its JSON; the stderr goes to the log.
+    The harness runs in a session of its own, which is killed when it
+    ends, so nothing it started outlives it; one that has not finished in
+    HARNESS_TIMEOUT_S seconds is killed with every process it started (the
+    scaling harness's ranks), and what it wrote to stderr is logged."""
     repo = Path(__file__).resolve().parent
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, *args], cwd=repo, capture_output=True, text=True,
-                          timeout=600)
     what = " ".join(args)
-    for line in proc.stderr.splitlines():
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, *args], cwd=repo, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=HARNESS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        for line in err.splitlines():
+            log(f"[harness] {line}")
+        raise AssertionError(f"{what}: no result in {HARNESS_TIMEOUT_S} s; killed with its "
+                             f"process group")
+    with contextlib.suppress(ProcessLookupError):  # anything the harness left running
+        os.killpg(proc.pid, signal.SIGKILL)
+    for line in err.splitlines():
         log(f"[harness] {line}")
-    lines = proc.stdout.splitlines()
+    lines = out.splitlines()
     if proc.returncode != 0 or len(lines) != 1:
         raise AssertionError(f"{what}: rc {proc.returncode}, {len(lines)} stdout lines:\n"
-                             f"{proc.stdout}\n{proc.stderr[-3000:]}")
+                             f"{out}\n{err[-3000:]}")
     log(f"[harness] {what}: {lines[0]} ({time.perf_counter() - t0:.1f} s)")
     return json.loads(lines[0])
 
@@ -1899,8 +1927,9 @@ def harness_phase(card, progressive_ms):
     in-harness check against the one-card step passed, the two modes'
     losses within rtol 1e-5.  (c) scripts/torch_perf_progressive.py, 8
     frames at 1280x720 x 1 spp x d8, denoiser on and off: the denoised
-    ms a frame within a factor of 3 of phase 4's (`progressive_ms`), and
-    device busy time in both."""
+    ms a frame within a factor of 3 of phase 4's (`progressive_ms`),
+    device busy time in both, and the JSON saying the loop ran compiled
+    ("graphed": true)."""
     torch.cuda.empty_cache()  # leave the card to the subprocesses
     with tempfile.TemporaryDirectory(prefix="poca_harness_") as tmp:
         out = Path(tmp) / "video.json"
@@ -1909,7 +1938,7 @@ def harness_phase(card, progressive_ms):
         video = json.loads(out.read_text())
         out = Path(tmp) / "scaling.json"
         run_harness(["scripts/torch_bench_scaling.py", "--counts", "1", "--tile", "128", "--spp",
-                     "1", "--depth", "4", "--out", str(out)])
+                     "1", "--depth", "4", "--rank-timeout", "150", "--out", str(out)])
         scaling = json.loads(out.read_text())
     progressive = run_harness(["scripts/torch_perf_progressive.py", "--frames", "8"])
 
@@ -1944,9 +1973,372 @@ def harness_phase(card, progressive_ms):
     ratio = settings[True]["ms_per_frame"] / progressive_ms
     log(f"[harness] progressive: {settings}; denoised {ratio:.3f}x phase 4's {progressive_ms:.3f} "
         f"ms/frame")
-    if not (progressive["device"] == card and 1 / 3 <= ratio <= 3
+    if not (progressive["device"] == card and progressive["graphed"] and 1 / 3 <= ratio <= 3
             and all(r["busy_ms"] > 0 for r in settings.values())):
         raise AssertionError(f"progressive harness: {progressive} (phase 4: {progressive_ms} ms)")
+
+# FP32 operations a tap of the denoiser (csrc/denoise.cu, counted as above): the colour and
+# normal distances 9 each (3 subtractions, 3 squares, 2 adds, the 1/pi scale), the depth
+# distance 3, the weight 4 multiplies, num and den 7, and 3 expf counted one each; and the
+# 3 divisions of a pixel.  Bytes: 7 floats read and 3 written a pixel.
+OPS_DENOISE_TAP, OPS_DENOISE_PIXEL, BYTES_DENOISE_PIXEL = 9 + 9 + 3 + 4 + 7 + 3, 3, 4 * (7 + 3)
+# the SFU's rate for the ex2 of each expf: 16 a clock an SM
+SFU_PER_S = 132 * 16 * 1.98e9
+# the CUDA function that each launch counter of ops/cuda/build.py counts (one <<<>>> a call)
+KERNEL_OF = dict(mega_trace="mega_trace_kernel", mega_trace_aux="mega_trace_kernel",
+                 stream_compact="compact_kernel", stream_expand="expand_kernel",
+                 winner_index="winner_index_kernel", bvh_winner_index="bvh_winner_kernel",
+                 mega_bwd="mega_bwd_kernel", denoise="denoise_kernel")
+# SASS opcodes that issue on the FP32 pipe
+FP32_PIPE_OPS = ("FADD", "FMUL", "FFMA", "FMNMX")
+
+
+def ulps(a, b):
+    """The largest distance in units in the last place between two f32
+    tensors of one sign pattern (as their int32 bit patterns)."""
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+
+
+def profiled_kernels(fn, need=(), attempts=3):
+    """{CUDA function: (records, device ms)} of the port's kernels in the
+    device's own records that torch.profiler kept while fn() ran (to a
+    synchronize; a graph's replay included).  The profiler loses some
+    records (188 of 200 launches kept once on the H100), so the counts
+    are at most the launches.  A profile that lacks a function of `need`
+    is taken again, up to `attempts` profiles."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = set(KERNEL_OF.values())
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            m = re.match(r"(?:void )?(\w+)[<(]", e.key)
+            if e.device_type == torch.autograd.DeviceType.CUDA and m and m.group(1) in names:
+                n, t = out.get(m.group(1), (0, 0.0))
+                out[m.group(1)] = (n + e.count, t + e.device_time_total / 1e3)
+        if all(k in out for k in need):
+            return out
+    raise AssertionError(f"torch.profiler recorded none of {sorted(set(need) - set(out))}")
+
+
+def seen_within(seen, counted):
+    """Every kernel the wrappers counted has records, and no more records
+    than launches; no other kernel of the port has any."""
+    return set(seen) == set(counted) and all(0 < seen[k] <= counted[k] for k in counted)
+
+
+def kernel_launches(launches):
+    """The launches of each CUDA function that build.LAUNCHES counted."""
+    out = {}
+    for k, n in launches.items():
+        if n:
+            out[KERNEL_OF[k]] = out.get(KERNEL_OF[k], 0) + n
+    return out
+
+
+def graph_loop_ms(fn, n, replays=5):
+    """Device ms a call of fn() from one CUDA graph of n calls, timed by
+    CUDA events over `replays` replays: no host time between launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * n)
+    graph.reset()
+    return ms
+
+
+def sass_opcodes(lib_path, mangled):
+    """Opcode counts of one function's SASS in the kernel library, from
+    cuobjdump beside nvcc (a static count: the denoiser's taps are
+    unrolled, so each runs once a thread), or None without the tool."""
+    from cpppathtracer_tpu_torch.ops.cuda import build as kb
+
+    tool = Path(kb._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120).stdout
+    counts, inside = {}, False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = line.split("Function :")[1].strip() == mangled
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if inside and m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts or None
+
+
+def first_call_cost(fn):
+    """Wall ms of fn()'s first call (on a graphed call: the warm-up, the
+    capture and the first replays) and the device memory it left held
+    once the allocator's free cache is released (the graphs' pools and
+    static buffers; fn's result is dropped first)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.empty_cache()
+    return ms, torch.cuda.memory_reserved() - mem0
+
+
+def compiled_phase(dev, card, scene, camera, sky, progressive_ms, lib_path):
+    """Phase 14: the compiled serving calls and the denoise kernel.
+    (a) csrc/denoise.cu against its plain version: on the progressive
+    frame's own buffers at 1280x720 and on seeded random inputs at odd
+    sizes (H or W under 5 among them), stepwidths 1 and 2, bitwise (else
+    the largest distance in ulps, held to 2); its time beside its bound
+    and the plain version's: by CUDA events around the wrapper, the mean
+    device time of the kernel records of 200 launches, and a CUDA graph of 100
+    launches timed by events; its SASS opcode counts.  (b)
+    render_radiance_jit against render_radiance bitwise on demo_scene(0)
+    at 1024^2 x 64 spp x d8, the textured demo at 1024^2 x 4 spp,
+    big_scene(16384) at 1024^2 x 4 spp x d8 and route A at 512^2 x 2 spp x
+    d8 (cut: route A is JAX's dense fallback), each with wall ms a sample
+    of both, device busy ms, the first call's ms and the memory it left
+    held, and the launches of a replayed call, both as the wrappers
+    counted them and as torch.profiler saw them under replay.  (c)
+    Replays after an in-place kd edit, a moved camera and a new sky:
+    bitwise with eager, no new capture.  (d) 16 compiled progressive
+    1280x720 frames against frame_step, denoiser on and off, every frame's
+    mix bitwise; ms a frame, busy ms and share of both; the launches of 16
+    compiled frames as counted, each kernel among torch.profiler's records
+    (which lose some launches, so at most as many).  Returns the
+    denoise kernel's row."""
+    from cpppathtracer_tpu_torch.bench import busy_ms
+    from cpppathtracer_tpu_torch.integrator import (
+        RENDER_GRAPHS, render_radiance, render_radiance_jit,
+    )
+    from cpppathtracer_tpu_torch.models.camera import Camera
+    from cpppathtracer_tpu_torch.models.presets import big_camera, big_scene
+    from cpppathtracer_tpu_torch.models.scene import demo_scene
+    from cpppathtracer_tpu_torch.ops.cuda import build as kb
+    from cpppathtracer_tpu_torch.ops.cuda.denoise_kernel import denoise, denoise_plain
+    from cpppathtracer_tpu_torch.renderer import (
+        AccumulatorState, ProgressiveRenderer, RenderConfig, frame_step,
+    )
+
+    # (a) the denoise kernel on the progressive frame's buffers and on random inputs
+    pcam = Camera.make(PROG_W, PROG_H, device=dev, **CAMERA)
+    with torch.no_grad():
+        rad, n0, t0 = render_radiance(scene, pcam, sky, spp=1, max_depth=DEPTH, seed=0)
+    frame_in = (rad.reshape(PROG_H, PROG_W, 3), n0.reshape(PROG_H, PROG_W, 3),
+                t0.reshape(PROG_H, PROG_W))
+    g = torch.Generator(device=dev).manual_seed(13)
+    cases = [("frame 1280x720", frame_in)]
+    for h, w in ((721, 1281), (29, 37), (3, 17), (4, 2), (1, 1)):
+        cases.append((f"random {w}x{h}", (2 * torch.rand((h, w, 3), device=dev, generator=g),
+                                          torch.randn((h, w, 3), device=dev, generator=g),
+                                          50 * torch.rand((h, w), device=dev, generator=g))))
+    worst_ulps, max_err, n_checked = 0, 0.0, 0
+    for what, args in cases:
+        for step in (1, 2):
+            got, ref = denoise(*args, step), denoise_plain(*args, step)
+            n_checked += 1
+            if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+                worst_ulps = max(worst_ulps, ulps(got, ref))
+                max_err = max(max_err, float((got - ref).abs().max()))
+                log(f"[denoise] {what} stepwidth {step}: not bitwise, {ulps(got, ref)} ulps "
+                    f"at most, max |d| {float((got - ref).abs().max()):.3e}")
+    log(f"[check] denoise kernel vs plain version on {n_checked} cases (the 1280x720 frame's "
+        f"buffers, random inputs at 1281x721, 37x29, 17x3, 2x4, 1x1; stepwidths 1 and 2): "
+        f"{'bitwise equal' if worst_ulps == 0 else f'{worst_ulps} ulps at most'}")
+    if worst_ulps > 2:
+        raise AssertionError(f"the denoise kernel differs from its plain version by "
+                             f"{worst_ulps} ulps")
+    dn = lambda: denoise(*frame_in)
+    ms_dn = time_ms(dn, iters=50)
+    def launches_200():
+        for _ in range(200):
+            dn()
+
+    n_rec, t_rec = profiled_kernels(launches_200, need=("denoise_kernel",))["denoise_kernel"]
+    dev_dn = t_rec / n_rec  # the mean of the records kept
+    graph_dn = graph_loop_ms(dn, 100)
+    plain_dn = time_ms(lambda: denoise_plain(*frame_in), iters=5)
+    px = PROG_W * PROG_H
+    ops_dn = px * (25 * OPS_DENOISE_TAP + OPS_DENOISE_PIXEL)
+    bytes_dn = px * BYTES_DENOISE_PIXEL
+    by_dn = "operations" if ops_dn / FP32_OPS_PER_S > bytes_dn / HBM_BYTES_PER_S else "bytes"
+    bound_dn = max(ops_dn / FP32_OPS_PER_S, bytes_dn / HBM_BYTES_PER_S) * 1e3
+    log(f"[kernels] denoise {PROG_W}x{PROG_H}, stepwidth 1: {ms_dn:.5f} ms by events around the "
+        f"wrapper; device {dev_dn:.5f} ms (the mean of the {n_rec} kernel records torch.profiler "
+        f"kept of 200 launches), {graph_dn:.5f} ms (a CUDA graph of 100 launches, by events); bound "
+        f"{bound_dn:.5f} ms ({by_dn}: {ops_dn:.4g} FP32 operations, "
+        f"{ops_dn / FP32_OPS_PER_S * 1e3:.5f} ms; {bytes_dn / 1e6:.2f} MB, "
+        f"{bytes_dn / HBM_BYTES_PER_S * 1e3:.5f} ms); --fmad=false floor of the counted "
+        f"operations {ops_dn / FP32_INSTR_PER_S * 1e3:.5f} ms; the expf's ex2 on the SFU "
+        f"{75 * px / SFU_PER_S * 1e3:.5f} ms; plain {plain_dn:.4f} ms; {card}")
+    sass = sass_opcodes(lib_path, "_Z14denoise_kernelPKfS0_S0_Pfiii")
+    if sass is None:
+        log("[sass] denoise_kernel: cuobjdump not found beside nvcc; not counted")
+    else:
+        fp32 = sum(sass.get(op, 0) for op in FP32_PIPE_OPS)
+        top = dict(sorted(sass.items(), key=lambda kv: -kv[1])[:16])
+        log(f"[sass] denoise_kernel (static, the 25 taps unrolled): {sum(sass.values())} "
+            f"instructions, {fp32} on the FP32 pipe ({', '.join(f'{op} {sass.get(op, 0)}' for op in FP32_PIPE_OPS)}), "
+            f"MUFU {sass.get('MUFU', 0)}; the FP32 pipe's floor at {PROG_W}x{PROG_H} "
+            f"{fp32 * px / FP32_INSTR_PER_S * 1e3:.5f} ms, every instruction's issue floor "
+            f"{sum(sass.values()) * px / FP32_INSTR_PER_S * 1e3:.5f} ms; opcodes {top}")
+
+    # (b) render_radiance_jit against render_radiance on each route
+    tex_scene, tex = textured_scene(scene, dev)
+    cfgs = [
+        ("demo", scene, camera, dict(spp=SPP), {}, "mega_trace_kernel"),
+        ("textured demo", tex_scene, camera, dict(spp=TEX_SPP, tex_stack=tex), {},
+         "mega_trace_kernel"),
+        (f"big_scene({BVH_N})", big_scene(BVH_N, device=dev), big_camera(BVH_N, W, H, device=dev),
+         dict(spp=WF_SPP), {}, "bvh_winner_kernel"),
+        ("route A", scene, camera.resize(W // 2, H // 2), dict(spp=2),
+         dict(POCA_MEGA="0", POCA_PLANAR="0"), "winner_index_kernel"),
+    ]
+    for what, sc, cam, kw, switches, kernel in cfgs:
+        kw = dict(kw, max_depth=DEPTH, seed=0)
+        spp = kw["spp"]
+        with torch.no_grad(), env(**switches):
+            RENDER_GRAPHS.clear()
+            jit = lambda: render_radiance_jit(sc, cam, sky, **kw)
+            eager = lambda: render_radiance(sc, cam, sky, **kw)
+            eager()  # warm
+            first_ms, held = first_call_cost(jit)  # the warm-up, the capture, the replays
+            captures = RENDER_GRAPHS.captures
+            walls = {}
+            for name, fn in (("jit", jit), ("eager", eager), ("eager", eager), ("jit", jit)):
+                torch.cuda.synchronize()
+                kb.reset_launches()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                walls.setdefault(name, []).append((time.perf_counter() - t0) * 1e3 / spp)
+                if name == "jit":
+                    got, launches = out, dict(kb.LAUNCHES)
+                else:
+                    ref, eager_launches = out, dict(kb.LAUNCHES)
+            same = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, ref))
+            del got, ref, out
+            busy_jit, busy_eager = busy_ms(jit, dev), busy_ms(eager, dev)
+            kb.reset_launches()
+            seen = {k: n for k, (n, _) in profiled_kernels(jit, need=(kernel,)).items()}
+            counted = kernel_launches(kb.LAUNCHES)
+        capture_ms = first_ms - spp * min(walls["jit"])
+        log(f"[compiled] {what} {cam.width}x{cam.height} x {spp} spp x d{DEPTH}: ms a sample "
+            f"jit {walls['jit']} eager {walls['eager']}; device busy per call jit "
+            f"{busy_jit:.3f} ms, eager {busy_eager:.3f} ms; first call {first_ms:.1f} ms (warm-up "
+            f"and capture {capture_ms:.1f} ms beside a replayed call), {held / 2**20:.1f} MiB "
+            f"held after it; launches of a replayed call {launches} (eager {eager_launches}); "
+            f"bitwise equal {same}; kernels of a replayed call, counted {counted}, records "
+            f"torch.profiler kept {seen}; {card}")
+        if not (same and launches == eager_launches and RENDER_GRAPHS.captures == captures
+                and seen_within(seen, counted)):
+            raise AssertionError(f"render_radiance_jit on {what}: bitwise {same}, launches "
+                                 f"{launches} vs {eager_launches}, profiler saw {seen} "
+                                 f"against {counted}")
+        RENDER_GRAPHS.clear()
+
+    # (c) replays after in-place and value changes: no recapture
+    kw = dict(spp=4, max_depth=DEPTH, seed=0)
+    sc = demo_scene(0).build(device=dev)
+    cam, sky2 = camera, sky.flip(0).contiguous()
+    with torch.no_grad():
+        render_radiance_jit(sc, cam, sky, **kw)
+        captures = RENDER_GRAPHS.captures
+        checks = []
+        for change in ("kd edited in place", "camera moved", "new sky"):
+            if change.startswith("kd"):
+                sc.kd.mul_(0.75)
+            elif change.startswith("camera"):
+                cam = cam.move_forward(3.0).rotate_left(0.05)
+            else:
+                sky = sky2
+            got = render_radiance_jit(sc, cam, sky, **kw)
+            ref = render_radiance(sc, cam, sky, **kw)
+            checks.append(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                              for a, b in zip(got, ref)))
+    log(f"[compiled] replays after {['kd edited in place', 'camera moved', 'new sky']}: bitwise "
+        f"{checks}, captures {RENDER_GRAPHS.captures - captures} new")
+    if not all(checks) or RENDER_GRAPHS.captures != captures:
+        raise AssertionError("a replay after an input change differs from eager or recaptured")
+    RENDER_GRAPHS.clear()
+
+    # (d) the compiled progressive loop against frame_step
+    denoise_launches = None
+    for use_dn in (True, False):
+        cfg = RenderConfig(width=PROG_W, height=PROG_H, max_depth=DEPTH, denoise=use_dn)
+        r = ProgressiveRenderer(scene, pcam, sky, cfg)
+        state = AccumulatorState.create(PROG_H, PROG_W, dev)
+        first_ms, held = first_call_cost(r.step)
+        state, ref = frame_step(scene, pcam, sky, state, 0, DEPTH, use_dn)
+        bits_ok = bits(r.state.mix).equal(bits(ref))  # the first frame's image
+        for _ in range(16):
+            img = r.step()
+            state, ref = frame_step(scene, pcam, sky, state, 0, DEPTH, use_dn)
+            bits_ok = bits_ok and bits(img).equal(bits(ref))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(16):
+            r.step()
+        torch.cuda.synchronize()
+        ms_graph = (time.perf_counter() - t0) * 1e3 / 16
+        kb.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(16):
+            state, _ = frame_step(scene, pcam, sky, state, 0, DEPTH, use_dn)
+        torch.cuda.synchronize()
+        ms_eager = (time.perf_counter() - t0) * 1e3 / 16
+        eager_launches = dict(kb.LAUNCHES)
+        # the launches of 16 compiled frames: as the replays counted them, and as the
+        # device's kernel records show them
+        kb.reset_launches()
+        def frames_16():
+            for _ in range(16):
+                r.step()
+
+        need = ("mega_trace_kernel", "denoise_kernel") if use_dn else ("mega_trace_kernel",)
+        seen = {k: n for k, (n, _) in profiled_kernels(frames_16, need=need).items()}
+        graph_launches = dict(kb.LAUNCHES)
+        counted = kernel_launches(graph_launches)
+        busy_graph = busy_ms(r.step, dev)
+        busy_eager = busy_ms(lambda: frame_step(scene, pcam, sky, state, 0, DEPTH, use_dn), dev)
+        log(f"[compiled] progressive {PROG_W}x{PROG_H} x1 spp x d{DEPTH} denoise={use_dn}: 17 frames "
+            f"bitwise equal to frame_step {bits_ok}; ms a frame compiled {ms_graph:.3f}, eager "
+            f"{ms_eager:.3f} (phase 4 {progressive_ms:.3f}); busy compiled {busy_graph:.3f} ms "
+            f"({busy_graph / ms_graph:.3f}), eager {busy_eager:.3f} ms "
+            f"({busy_eager / ms_eager:.3f}); capture and first frame {first_ms:.1f} ms, "
+            f"{held / 2**20:.1f} MiB held after it; launches of 16 compiled frames {graph_launches}, "
+            f"records torch.profiler kept {seen}; {card}")
+        if not bits_ok or r.graphs.captures != 1:
+            raise AssertionError(f"compiled progressive frames (denoise={use_dn}) differ from "
+                                 f"frame_step, or recaptured")
+        if not (graph_launches == eager_launches and seen_within(seen, counted)
+                and graph_launches["denoise"] == 16 * use_dn and graph_launches["mega_trace"] == 32):
+            raise AssertionError(f"16 compiled frames launched {graph_launches} (profiler: {seen}), "
+                                 f"16 eager frames {eager_launches}")
+        if use_dn:
+            denoise_launches = graph_launches["denoise"]
+    return dict(name="denoise", route="cuda", source="cpppathtracer_tpu_torch/csrc/denoise.cu",
+                replaces="cpppathtracer_tpu/ops/denoise.py:39 (XLA's fused pass; no pallas_call)",
+                launches=denoise_launches, max_abs_err=max_err, ms=ms_dn, plain_ms=plain_dn,
+                bound_ms=bound_dn, bound_by=by_dn, library_ms=None, device_ms=dev_dn,
+                graph_ms=graph_dn)
 
 
 def main():
@@ -2145,7 +2537,7 @@ def main():
     train_launches = dict(kb.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     want = dict(mega_trace=2 * SPP, mega_trace_aux=0, stream_compact=SPP, stream_expand=SPP,
-                mega_bwd=SPP, winner_index=0, bvh_winner_index=0)
+                mega_bwd=SPP, winner_index=0, bvh_winner_index=0, denoise=0)
     if train_launches != want:
         raise AssertionError(f"training step launches {train_launches}, expected {want}")
     for name, g in (("kd", g_kd), ("emission", g_em)):
@@ -2326,6 +2718,8 @@ def main():
     bench_phase(dev, card, scene, camera, sky, (loss, g_kd, g_em))
     # ---- phase 13: the video, scaling and progressive harnesses
     harness_phase(card, progressive_ms)
+    # ---- phase 14: the compiled serving calls (CUDA graphs) and the denoise kernel
+    kernels.append(compiled_phase(dev, card, scene, camera, sky, progressive_ms, lib_path))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

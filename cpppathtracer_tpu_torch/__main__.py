@@ -51,8 +51,8 @@ def _scene_camera(args):
 
 
 def cmd_render(args):
-    from cpppathtracer_tpu_torch.integrator import render_radiance
-    from cpppathtracer_tpu_torch.ops.denoise import denoise
+    from cpppathtracer_tpu_torch.integrator import render_radiance_jit
+    from cpppathtracer_tpu_torch.ops.cuda.denoise_kernel import denoise
     from cpppathtracer_tpu_torch.renderer import to_rgb8
     from cpppathtracer_tpu_torch.utils.obs import RaysPerSecond, Timer, get_logger
     from cpppathtracer_tpu_torch.utils.png import write_png
@@ -66,7 +66,9 @@ def cmd_render(args):
     timing = {}
     h, w = camera.height, camera.width
     with torch.no_grad(), Timer.phase("render", timing) as ph:
-        rad, n0, d0 = render_radiance(scene, camera, sky, spp=spp, max_depth=depth, seed=args.seed)
+        # compiled, as the JAX command jits its render (CUDA graphs on the card)
+        rad, n0, d0 = render_radiance_jit(scene, camera, sky, spp=spp, max_depth=depth,
+                                          seed=args.seed)
         rad = rad.reshape(h, w, 3)
         if not args.no_denoise:
             rad = denoise(rad, n0.reshape(h, w, 3), d0.reshape(h, w))

@@ -45,6 +45,7 @@ autograd: its winner indices are selected without a graph.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import torch
@@ -54,7 +55,16 @@ from cpppathtracer_tpu_torch.ops.mathx import div_const
 from cpppathtracer_tpu_torch.ops.mega import mega_sample
 from cpppathtracer_tpu_torch.ops.uv import surface_uv, surface_uv_p
 from cpppathtracer_tpu_torch.types import INF, TMIN_BOUNCE, Rays
-from cpppathtracer_tpu_torch.utils.rng import uniforms4
+from cpppathtracer_tpu_torch.utils.graphs import (
+    Entry,
+    GraphedCall,
+    copy_into,
+    env_switches,
+    requires_grad,
+    signature,
+    static_twin,
+)
+from cpppathtracer_tpu_torch.utils.rng import sample_key, uniforms4
 
 
 def _textured_kd(tex_id, geom_p, pos, tex_stack, kd):
@@ -190,7 +200,7 @@ def wavefront_sample(gs, camera, pixel_idx, sample_idx, seed, depth, tex_stack=N
     r = pixel_idx.shape[0]
     dev = pixel_idx.device
     pix = pixel_idx.to(torch.int32)
-    samp = torch.as_tensor(sample_idx, dtype=torch.int32, device=dev).expand(r)
+    samp = sample_key(sample_idx, r, dev)
     o, d = camera.ray_gen_planar(pix, samp, seed)
     inputs = (*o, *d, gs.table_s, gs.table_r, tex_stack)
     if not (torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs)):
@@ -340,6 +350,96 @@ def render_sample(scene, camera, sky_tex, pixel_idx, sample_idx, seed, max_depth
                               max_depth, tex_stack)
 
 
+def _check_devices(scene, camera, sky_tex, tex_stack):
+    dev = scene.device
+    if camera.device != dev or sky_tex.device != dev or (
+            tex_stack is not None and tex_stack.device != dev):
+        raise ValueError(
+            f"scene, camera, sky and textures must share a device: {dev}, {camera.device}, "
+            f"{sky_tex.device}{'' if tex_stack is None else ', ' + str(tex_stack.device)}"
+        )
+
+
+def _spp_chunk(spp: int, spp_chunk: int) -> int:
+    """The samples traced as one batch: `spp_chunk`, or POCA_SPP_CHUNK (a
+    positive integer) over it, at most spp, and 1 unless it divides spp."""
+    env_chunk = os.environ.get("POCA_SPP_CHUNK", "")
+    if env_chunk.isdigit() and int(env_chunk) > 0:
+        spp_chunk = int(env_chunk)
+    spp_chunk = max(1, min(spp_chunk, spp))
+    return 1 if spp % spp_chunk else spp_chunk
+
+
+@dataclasses.dataclass
+class _Prepared:
+    """What every sample of a render reads: the grouped scene (None for a
+    scene without type metadata), the packed sky, the pixel indices of a
+    chunk of samples and their sample offsets within it, and the route."""
+
+    gs: fast.GroupedScene | None
+    sky_packed: texture.PackedTexture
+    pix_c: torch.Tensor
+    samp_rep: torch.Tensor | None
+    r_n: int
+    chunk: int
+    use_mega: bool
+
+
+def _prepare(scene, sky_tex, pixel_idx, chunk: int) -> _Prepared:
+    dev = scene.device
+    r_n = pixel_idx.shape[0]
+    if chunk > 1:
+        pix_c = pixel_idx.repeat(chunk)
+        samp_rep = torch.arange(chunk, dtype=torch.int32, device=dev).repeat_interleave(r_n)
+    else:
+        pix_c, samp_rep = pixel_idx, None
+    gs = fast.group_scene(scene)
+    use_mega = gs is not None and not fast.use_bvh(gs) and os.environ.get("POCA_MEGA", "") != "0"
+    return _Prepared(gs, texture.pack_bilinear(sky_tex), pix_c, samp_rep, r_n, chunk, use_mega)
+
+
+def _sample(prep: _Prepared, scene, camera, key, seed, max_depth: int, tex_stack):
+    """One chunk of samples from sample `key` (an int, or an i32 device
+    tensor: a CUDA graph's key buffer) on the route of `prep`: (radiance
+    f32[..., 3] summed over the chunk, first_normal, first_t of its first
+    sample)."""
+    s_key = key if prep.samp_rep is None else key + prep.samp_rep
+    if prep.use_mega:
+        textured = tex_stack is not None
+        rad_p, miss_p, thru_p, missed, fn_p, ft, hits, *aux = mega_sample(
+            prep.gs, camera, prep.pix_c, s_key, seed, max_depth, with_aux=textured
+        )
+        if textured:
+            rad = _mega_tex_radiance(prep.gs, tex_stack, hits, aux[0], miss_p, missed,
+                                     prep.sky_packed)
+        else:
+            rad = sky_epilogue(prep.sky_packed, rad_p, miss_p, thru_p, missed)
+        n0 = planar.stack_v3(fn_p)
+    else:
+        rad, n0, ft = _per_bounce_sample(scene, prep.gs, camera, prep.sky_packed, prep.pix_c,
+                                         s_key, seed, max_depth, tex_stack)
+    if prep.chunk > 1:
+        rad = rad.reshape(prep.chunk, prep.r_n, 3).sum(0)
+        n0, ft = n0[:prep.r_n], ft[:prep.r_n]
+    return rad, n0, ft
+
+
+def _accumulate(prep: _Prepared, scene, camera, key0, spp: int, seed, max_depth: int, tex_stack,
+               pixel_shape):
+    """The sample loop of :func:`render_radiance` from sample key `key0`
+    (an int, or an i32 device tensor): (mean radiance, first_normal,
+    first_t of sample 0)."""
+    acc_rad = torch.zeros((*pixel_shape, 3), dtype=torch.float32, device=scene.device)
+    acc_n = acc_t = None
+    for s in range(spp // prep.chunk):
+        rad, n0, ft = _sample(prep, scene, camera, key0 + s * prep.chunk, seed, max_depth,
+                              tex_stack)
+        acc_rad = acc_rad + rad
+        if s == 0:
+            acc_n, acc_t = n0, ft
+    return div_const(acc_rad, float(spp)), acc_n, acc_t
+
+
 def render_radiance(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: int = 0,
                     pixel_idx=None, sample_offset: int = 0, tex_stack=None,
                     spp_chunk: int = 1):
@@ -354,61 +454,125 @@ def render_radiance(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: i
     sweep that sets the environment (as ``scripts/perf_knobs.py`` does for
     the JAX package) sets the port's batch the same way.  `tex_stack`
     f32[T, H, W, 3] textures the albedo of objects whose tex_id is >= 0.
+    `sample_offset` may also be an i32 0-dim device tensor (the key buffer
+    of a CUDA graph, ``renderer.ProgressiveRenderer``'s frame).
     The result is differentiable w.r.t. the scene's material and geometry
     fields, the camera, the sky and the texture stack whenever they
     require grad, on every path (the backward of each sample is
     ``ops/mega.py::MegaSample``, :class:`WavefrontSample` or autograd of
-    the row-major body).  The serving path calls it under torch.no_grad().
+    the row-major body).  This is the eager form, one PyTorch operation at
+    a time; serving calls :func:`render_radiance_jit`, its CUDA graph.
     """
-    dev = scene.device
-    if camera.device != dev or sky_tex.device != dev or (
-            tex_stack is not None and tex_stack.device != dev):
+    _check_devices(scene, camera, sky_tex, tex_stack)
+    if pixel_idx is None:
+        pixel_idx = torch.arange(camera.width * camera.height, dtype=torch.int32,
+                                 device=scene.device)
+    prep = _prepare(scene, sky_tex, pixel_idx, _spp_chunk(spp, spp_chunk))
+    return _accumulate(prep, scene, camera, sample_offset, spp, seed, max_depth, tex_stack,
+                      pixel_idx.shape)
+
+
+# The CUDA graphs of render_radiance_jit, as jax.jit caches its programs:
+# a few keys, least recently used first out; RENDER_GRAPHS.clear() frees them.
+RENDER_GRAPHS = GraphedCall(max_entries=4)
+
+
+def render_radiance_jit(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: int = 0,
+                        pixel_idx=None, sample_offset: int = 0, tex_stack=None,
+                        spp_chunk: int = 1):
+    """:func:`render_radiance` compiled, the counterpart of JAX
+    `integrator.py:515-517`: same arguments, same result, bit for bit.
+
+    On the card, one CUDA graph of a chunk of samples (ray generation, the
+    tables, the sample on the route render_radiance takes, its epilogue,
+    the sum into a static accumulator; the first chunk's also keeps the
+    first-hit normal and t) is captured once per key of
+    :data:`RENDER_GRAPHS` and replayed spp / spp_chunk times, the sample
+    key advanced inside the graph; capture time and graph memory do not
+    grow with spp.  The key is what the graph bakes in: every input's
+    shape and dtype, spp, the chunk, max_depth, seed and the POCA_*
+    switches that choose the route.  New values of the same shapes (a
+    moved camera, an edited or refitted scene, another sky, other
+    textures or pixel indices, another sample_offset) are copied into the
+    graph's buffers and replay it.  The outputs are the caller's own
+    tensors (copies of the graph's buffers).  Inputs that require grad
+    under grad mode raise ValueError: this is the serving call (the
+    compiled training step is a later slice).  A capture that fails
+    raises; nothing runs eagerly in its place.
+
+    On the CPU it is :func:`render_radiance`.
+    """
+    if scene.device.type == "cpu":
+        return render_radiance(scene, camera, sky_tex, spp=spp, max_depth=max_depth, seed=seed,
+                               pixel_idx=pixel_idx, sample_offset=sample_offset,
+                               tex_stack=tex_stack, spp_chunk=spp_chunk)
+    return render_graphed(RENDER_GRAPHS, scene, camera, sky_tex, spp=spp, max_depth=max_depth,
+                          seed=seed, pixel_idx=pixel_idx, sample_offset=sample_offset,
+                          tex_stack=tex_stack, spp_chunk=spp_chunk)
+
+
+def render_key(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: int = 0,
+               pixel_idx=None, tex_stack=None, spp_chunk: int = 1):
+    """The cache key of :func:`render_radiance_jit`'s graphs for these
+    arguments."""
+    inputs = (scene, camera, sky_tex, tex_stack, pixel_idx)
+    return ("render", signature(inputs), spp, _spp_chunk(spp, spp_chunk), max_depth, int(seed),
+            env_switches())
+
+
+def render_graphed(runner: GraphedCall, scene, camera, sky_tex, *, spp: int, max_depth: int,
+                   seed: int = 0, pixel_idx=None, sample_offset: int = 0, tex_stack=None,
+                   spp_chunk: int = 1):
+    """:func:`render_radiance_jit`'s body on the graphs of `runner` (its
+    capture backend decides what a capture is)."""
+    _check_devices(scene, camera, sky_tex, tex_stack)
+    inputs = (scene, camera, sky_tex, tex_stack, pixel_idx)
+    if torch.is_grad_enabled() and requires_grad(*inputs):
         raise ValueError(
-            f"scene, camera, sky and textures must share a device: {dev}, {camera.device}, "
-            f"{sky_tex.device}{'' if tex_stack is None else ', ' + str(tex_stack.device)}"
+            "render_radiance_jit serves frames and takes no inputs that require grad (the "
+            "compiled training step is a later slice): call render_radiance, or wrap the call "
+            "in torch.no_grad()"
         )
+    chunk = _spp_chunk(spp, spp_chunk)
+    key = render_key(scene, camera, sky_tex, spp=spp, max_depth=max_depth, seed=seed,
+                     pixel_idx=pixel_idx, tex_stack=tex_stack, spp_chunk=spp_chunk)
+    e = runner.entry(key, lambda r: _capture_render(r, inputs, spp // chunk, chunk, max_depth,
+                                                    seed))
+    copy_into(e.inputs, inputs)
+    e.key.fill_(sample_offset)
+    for g in e.graphs[:1] + e.graphs[1:] * (spp // chunk - 1):
+        g.replay()
+    return div_const(e.acc, float(spp)), e.first_n.clone(), e.first_t.clone()
+
+
+def _capture_render(runner, inputs, n_chunks: int, chunk: int, max_depth: int, seed):
+    """The entry of one render key: static inputs, the key and accumulator
+    buffers, and the graphs of the first chunk (which also prepares the
+    tables and keeps the first-hit buffers) and, when spp > chunk, of a
+    later chunk."""
+    e = Entry()
+    e.inputs = static_twin(inputs)
+    scene, camera, sky_tex, tex_stack, pixel_idx = e.inputs
+    dev = scene.device
     if pixel_idx is None:
         pixel_idx = torch.arange(camera.width * camera.height, dtype=torch.int32, device=dev)
-    env_chunk = os.environ.get("POCA_SPP_CHUNK", "")
-    if env_chunk.isdigit() and int(env_chunk) > 0:
-        spp_chunk = int(env_chunk)
-    spp_chunk = max(1, min(spp_chunk, spp))
-    if spp % spp_chunk:
-        spp_chunk = 1
-    r_n = pixel_idx.shape[0]
-    if spp_chunk > 1:
-        pix_c = pixel_idx.repeat(spp_chunk)
-        samp_rep = torch.arange(spp_chunk, dtype=torch.int32, device=dev).repeat_interleave(r_n)
-    else:
-        pix_c, samp_rep = pixel_idx, None
+    e.key = torch.zeros((), dtype=torch.int32, device=dev)
+    e.acc = torch.zeros((*pixel_idx.shape, 3), dtype=torch.float32, device=dev)
 
-    gs = fast.group_scene(scene)
-    sky_packed = texture.pack_bilinear(sky_tex)
-    use_mega = gs is not None and not fast.use_bvh(gs) and os.environ.get("POCA_MEGA", "") != "0"
-    textured = tex_stack is not None
+    def first():
+        with torch.no_grad():
+            e.prep = _prepare(scene, sky_tex, pixel_idx, chunk)
+            rad, e.first_n, e.first_t = _sample(e.prep, scene, camera, e.key, seed, max_depth,
+                                                tex_stack)
+            e.acc.zero_().add_(rad)  # render_radiance's zeros + rad
+            e.key.add_(chunk)
 
-    acc_rad = torch.zeros((*pixel_idx.shape, 3), dtype=torch.float32, device=dev)
-    acc_n = acc_t = None
-    for s in range(spp // spp_chunk):
-        s_key = sample_offset + s * spp_chunk
-        if samp_rep is not None:
-            s_key = s_key + samp_rep
-        if use_mega:
-            rad_p, miss_p, thru_p, missed, fn_p, ft, hits, *aux = mega_sample(
-                gs, camera, pix_c, s_key, seed, max_depth, with_aux=textured
-            )
-            if textured:
-                rad = _mega_tex_radiance(gs, tex_stack, hits, aux[0], miss_p, missed, sky_packed)
-            else:
-                rad = sky_epilogue(sky_packed, rad_p, miss_p, thru_p, missed)
-            n0 = planar.stack_v3(fn_p)
-        else:
-            rad, n0, ft = _per_bounce_sample(scene, gs, camera, sky_packed, pix_c, s_key, seed,
-                                             max_depth, tex_stack)
-        if spp_chunk > 1:
-            rad = rad.reshape(spp_chunk, r_n, 3).sum(0)
-            n0, ft = n0[:r_n], ft[:r_n]
-        acc_rad = acc_rad + rad
-        if s == 0:
-            acc_n, acc_t = n0, ft
-    return div_const(acc_rad, float(spp)), acc_n, acc_t
+    def later():
+        with torch.no_grad():
+            rad, _, _ = _sample(e.prep, scene, camera, e.key, seed, max_depth, tex_stack)
+            e.acc.add_(rad)
+            e.key.add_(chunk)
+
+    bodies = (first, later) if n_chunks > 1 else (first,)
+    e.graphs = runner.capture(*bodies, device=dev)
+    return e

@@ -71,7 +71,8 @@ class Camera:
         return dataclasses.replace(self, **kw)
 
     def _vup(self):
-        return torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=self.device)
+        # a device kernel, not a host-to-device copy: basis() runs inside CUDA graphs
+        return torch.eye(3, dtype=torch.float32, device=self.device)[1]
 
     def basis(self):
         """(u, v, w, top_left, horizontal, vertical), f32[3] each."""

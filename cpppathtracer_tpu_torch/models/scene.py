@@ -14,6 +14,7 @@ layout of them, which the per-bounce wavefront path walks with
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -75,6 +76,13 @@ class Scene:
     @property
     def device(self) -> torch.device:
         return self.center.device
+
+    @functools.cached_property
+    def type_perm_index(self) -> torch.Tensor:
+        """`type_perm` as i64[N] on the scene's device, copied there once
+        per scene: ``fast.group_scene`` reads it inside CUDA graphs, where
+        no host-to-device copy may run."""
+        return torch.tensor(self.type_perm, dtype=torch.int64, device=self.device)
 
     def _grouped_geometry(self):
         """The geometry fields in grouped order (type_perm), as numpy

@@ -40,7 +40,7 @@ NVCC_FLAGS = [
 # launches per wrapper since the last reset_launches(); mega_trace's with_aux
 # form (a kernel instantiation of its own) counts apart
 LAUNCHES = {"mega_trace": 0, "mega_trace_aux": 0, "stream_compact": 0, "stream_expand": 0,
-            "mega_bwd": 0, "winner_index": 0, "bvh_winner_index": 0}
+            "mega_bwd": 0, "winner_index": 0, "bvh_winner_index": 0, "denoise": 0}
 
 
 def reset_launches():
@@ -142,6 +142,8 @@ _SIGNATURES = {
     "poca_bvh_winner_index": [_P] * 12 + [_P] + [_I] * 3 + [_P],
     # m n_leaves | info (registers, local bytes, blocks per SM, nodes in shared memory)
     "poca_bvh_info": [_I] * 2 + [_P],
+    # rad nrm dep out | H W stepwidth | stream
+    "poca_denoise": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 

@@ -60,7 +60,7 @@ def group_scene(scene) -> GroupedScene | None:
     if not scene.type_perm or not scene.type_counts:
         return None
     counts = tuple(scene.type_counts)
-    perm = torch.tensor(scene.type_perm, dtype=torch.int64, device=scene.device)
+    perm = scene.type_perm_index
     g = lambda a: a.index_select(0, perm)
     center = g(scene.center)
     radius = g(scene.radius)

@@ -63,7 +63,7 @@ from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import build_geom_rows
 from cpppathtracer_tpu_torch.ops.cuda.mega_bwd_kernel import mega_bwd
 from cpppathtracer_tpu_torch.ops.cuda.mega_kernel import build_tables_T, mega_trace
 from cpppathtracer_tpu_torch.types import INF, TMIN_BOUNCE, MaterialType
-from cpppathtracer_tpu_torch.utils.rng import uniforms4
+from cpppathtracer_tpu_torch.utils.rng import sample_key, uniforms4
 
 _MEGA_TILE = 1024
 _SPLIT = 2
@@ -373,7 +373,7 @@ def mega_sample(gs, camera, pixel_idx, sample_idx, seed, depth, with_aux=False):
     """
     r = pixel_idx.shape[0]
     dev = pixel_idx.device
-    samp = torch.as_tensor(sample_idx, dtype=torch.int32, device=dev).expand(r).contiguous()
+    samp = sample_key(sample_idx, r, dev)
     pix = pixel_idx.to(torch.int32).contiguous()
     o, d = camera.ray_gen_planar(pix, samp, seed)
     with torch.no_grad():

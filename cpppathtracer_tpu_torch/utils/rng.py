@@ -40,14 +40,32 @@ def _pcg4d(x, y, z, w):
     return x, y, z, w
 
 
+def _u32_bits(v: int) -> int:
+    """A Python int's uint32 bit pattern as a signed 32-bit int."""
+    v &= 0xFFFFFFFF
+    return v - 2**32 if v >= 2**31 else v
+
+
 def _as_i32(v, shape, device):
     """An int / integer-tensor key as int32 holding its uint32 bit pattern,
-    broadcast to `shape`."""
+    broadcast to `shape`.  A Python int becomes a device fill, never a
+    host-to-device copy, so the draw can be captured in a CUDA graph."""
+    if isinstance(v, int):
+        return torch.full((), _u32_bits(v), dtype=torch.int32, device=device).expand(shape)
     t = torch.as_tensor(v, device=device)
     if t.dtype != torch.int32:
         t = t.to(torch.int64) & 0xFFFFFFFF
         t = torch.where(t >= 2**31, t - 2**32, t).to(torch.int32)
     return t.expand(shape)
+
+
+def sample_key(sample_idx, r: int, device):
+    """The per-ray sample index i32[r] of a sample: `sample_idx` an int (a
+    device fill) or an integer tensor of one value or of r (a device tensor
+    when the key lives in a CUDA graph's buffer)."""
+    if isinstance(sample_idx, torch.Tensor):
+        return sample_idx.to(device=device, dtype=torch.int32).expand(r).contiguous()
+    return torch.full((r,), int(sample_idx), dtype=torch.int32, device=device)
 
 
 def uniforms4(seed, pixel, sample, ctr):

@@ -21,7 +21,7 @@ import torch
 
 from cpppathtracer_tpu_torch.integrator import render_radiance
 from cpppathtracer_tpu_torch.models.camera import Camera
-from cpppathtracer_tpu_torch.ops.denoise import denoise
+from cpppathtracer_tpu_torch.ops.cuda.denoise_kernel import denoise
 from cpppathtracer_tpu_torch.parallel.render import render_image_sharded
 from cpppathtracer_tpu_torch.utils.png import write_png
 

@@ -27,7 +27,9 @@ The card has two forms of the mesh, and --mode picks either or both:
            update), behind a ``dist.barrier()``; its time is the slowest
            rank's.  ``comm_step_s`` times the gradients' all-reduce alone,
            ``dispatch_s`` ``x + 1`` and a synchronize on each rank.  Every
-           rank has a hard timeout, so a hung rank fails the run.
+           rank has a hard timeout (--rank-timeout), past which it prints
+           its threads' stacks and exits, so a hung rank fails the run and
+           shows where it hung.
 
 Each step time is the best of 3 after a warm-up (bench_scaling.py:69-78),
 ``comm_step_s`` and ``dispatch_s`` the best of 10; on the card ``busy_ms``
@@ -54,12 +56,14 @@ SCALING_r5.json (CPU and TPU measurements), prints one summary line on
 stdout and its progress on stderr.
 
 Usage: python scripts/torch_bench_scaling.py [--tile 256] [--spp 2] [--depth 4]
-           [--counts 1,2,4] [--mode process|procs|both] [--device cpu] [--out PATH]
+           [--counts 1,2,4] [--mode process|procs|both] [--rank-timeout 900]
+           [--device cpu] [--out PATH]
 """
 
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import math
 import multiprocessing.connection
@@ -92,7 +96,6 @@ from cpppathtracer_tpu_torch.types import resolve_device  # noqa: E402
 JAX_FILES = ("SCALING_r4.json", "SCALING_r5.json")
 CAMERA = dict(origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0))
 FIELDS = ("kd", "emission")
-RANK_TIMEOUT_S = 900.0  # a rank still running after this fails the run
 
 
 def log(msg):
@@ -213,8 +216,14 @@ def process_row(n, args, dev):
                check, peak)
 
 
-def rank_main(rank, world, args, on_card, rendezvous, out_dir):
-    """One rank of the procs mode, on its own device."""
+def rank_main(rank, world, args, on_card, rendezvous, out_dir, spawned):
+    """One rank of the procs mode, on its own device, with a line on
+    stderr when it is up (seconds after its spawn at time `spawned`) and
+    when it is done.  A rank still running after --rank-timeout seconds
+    prints every thread's stack to stderr and exits non-zero."""
+    faulthandler.dump_traceback_later(args.rank_timeout, exit=True)
+    log(f"[scaling] rank {rank}/{world} up {time.time() - spawned:.1f} s after its spawn")
+    t0 = time.perf_counter()
     if on_card:
         torch.cuda.set_device(rank)
         dev = torch.device("cuda", rank)
@@ -291,35 +300,43 @@ def rank_main(rank, world, args, on_card, rendezvous, out_dir):
             Path(out_dir, "rank0.json").write_text(json.dumps(out))
     finally:
         distributed.shutdown()
+    log(f"[scaling] rank {rank}/{world} done in {time.perf_counter() - t0:.1f} s")
 
 
 def procs_row(n, args, on_card):
-    """Start n spawned ranks; fail as soon as one exits non-zero, or after
-    RANK_TIMEOUT_S, killing the others."""
+    """Start n spawned ranks; fail as soon as one exits non-zero, or when
+    one is still alive 30 s past --rank-timeout (its own limit), killing
+    the others."""
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="poca_scaling_") as tmp:
+        spawned = time.time()
         procs = [ctx.Process(target=rank_main,
-                             args=(r, n, args, on_card, os.path.join(tmp, "rendezvous"), tmp))
+                             args=(r, n, args, on_card, os.path.join(tmp, "rendezvous"), tmp,
+                                   spawned))
                  for r in range(n)]
         for p in procs:
             p.start()
-        deadline = time.monotonic() + RANK_TIMEOUT_S
+        deadline = time.monotonic() + args.rank_timeout + 30
         try:
             while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+                # at most a second between looks: the sentinel of a rank that had exited
+                # stayed unready until the deadline in 3 of 12 runs on the H100
                 multiprocessing.connection.wait([p.sentinel for p in procs if p.is_alive()],
-                                                timeout=max(0.0, deadline - time.monotonic()))
+                                                timeout=min(1.0, deadline - time.monotonic()))
                 if any(p.exitcode not in (None, 0) for p in procs):
                     break
         finally:
             hung = [p for p in procs if p.is_alive()]
             for p in hung:
                 p.kill()
-            for p in procs:
+            for p in hung:
                 p.join(10)
+        log(f"[scaling] procs n={n}: ranks joined {time.time() - spawned:.1f} s after their spawn")
         codes = [p.exitcode for p in procs]
         if hung or codes != [0] * n:
             raise SystemExit(f"procs mode, n = {n}: rank exit codes {codes}"
-                             + (f", {len(hung)} killed after {RANK_TIMEOUT_S:.0f} s" if hung else ""))
+                             + (f", {len(hung)} killed after {args.rank_timeout + 30:.0f} s"
+                                if hung else ""))
         return json.loads(Path(tmp, "rank0.json").read_text())
 
 
@@ -332,6 +349,8 @@ def main(argv=None):
                     help="device counts, e.g. 1,2,4 (default: those of 1, 2, 4, 8 the run has: "
                          "the visible cards, or on the CPU the host's cores)")
     ap.add_argument("--mode", choices=("process", "procs", "both"), default="both")
+    ap.add_argument("--rank-timeout", type=float, default=900.0,
+                    help="seconds after which a procs rank prints its stacks and fails the run")
     ap.add_argument("--device", default=None,
                     help="torch device type (default: the CUDA cards; 'cpu' runs the plain "
                          "versions)")

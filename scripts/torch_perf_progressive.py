@@ -5,8 +5,12 @@ camera and a 256x256 procedural sky.
 
 For the denoiser on and then off, builds ``renderer.ProgressiveRenderer``
 with its ``RenderConfig``, takes one warm-up ``step()`` (on the card it
-holds the kernels' first-use nvcc build), then times `frames` steps to a
-synchronize (perf_progressive.py:33-52).  Beside the mean ms a frame:
+holds the kernels' first-use nvcc build and the capture of the frame's
+CUDA graph), then times `frames` steps to a synchronize
+(perf_progressive.py:33-52).  On the card each step replays that graph,
+as JAX's loop runs its jitted frame program, and the JSON says so
+(``"graphed": true`` when every setting's renderer captured its frame graph);
+on the CPU it is the eager ``frame_step``.  Beside the mean ms a frame:
 the device busy ms of one frame under torch.profiler (on the card), and
 one blocking host fetch of the accumulated image, ``frame()``, timed
 alone (the JAX script's docstring promises that figure; its code never
@@ -91,19 +95,22 @@ def main(argv=None):
     scene = demo_scene(seed=0).build(device=dev)
     cam = Camera.make(w, h, origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0), device=dev)
     sky = torch.from_numpy(procedural_sky(256, 256)).to(dev)
-    rows = [run_setting(scene, cam, sky, args.depth, denoise, args.frames, dev)[0]
+    runs = [run_setting(scene, cam, sky, args.depth, denoise, args.frames, dev)
             for denoise in (True, False)]
+    rows = [row for row, _ in runs]
+    # whether every setting's frames replayed a captured CUDA graph
+    graphed = all(r.graphs.captures > 0 for _, r in runs)
     label = device_label(dev)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"backend": dev.type, "device": label,
+            json.dump({"backend": dev.type, "device": label, "graphed": graphed,
                        "config": {"width": w, "height": h, "spp_per_frame": 1,
                                   "depth": args.depth, "frames": args.frames},
                        "rows": rows}, f, indent=2)
     print(json.dumps({"progressive": [{k: r[k] for k in ("denoise", "ms_per_frame", "fps",
                                                          "busy_ms")} for r in rows],
-                      "device": label}), flush=True)
+                      "device": label, "graphed": graphed}), flush=True)
 
 
 if __name__ == "__main__":

@@ -434,7 +434,7 @@ def test_bench_step_matches_loss_grads_on_card(dev):
     loss, grads = step()
     torch.cuda.synchronize()
     assert kb.LAUNCHES == dict(mega_trace=4, mega_trace_aux=0, stream_compact=2, stream_expand=2,
-                               mega_bwd=2, winner_index=0, bvh_winner_index=0)
+                               mega_bwd=2, winner_index=0, bvh_winner_index=0, denoise=0)
     ref = chip_smoke.loss_grads(s0, cam, sky0, 2, 4)
     assert torch.equal(loss, ref[0])
     for g, r in zip(grads.values(), ref[1:]):
@@ -943,3 +943,211 @@ def test_video_harness_on_card(dev, tmp_path):
     assert res["backend"] == "cuda" and len(res["frame_sha256_16"]) == 3
     assert res["frame_sha256_16"][0] == res["warmup_frame0_sha256_16"]
     assert res["busy_ms_per_frame"] > 0
+
+
+# ---- the denoise kernel and the compiled serving calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stepwidth", [1, 2])
+@pytest.mark.parametrize("h,w", [(48, 64), (720, 1280), (29, 37), (3, 17), (1, 1), (4, 2)])
+def test_denoise_kernel_matches_plain_on_card(dev, h, w, stepwidth):
+    """csrc/denoise.cu bitwise equal to its plain version on seeded inputs
+    (radiance in [0, 2), normals N(0, 1), depth in [0, 50)), one launch."""
+    from cpppathtracer_tpu_torch.ops.cuda.denoise_kernel import denoise, denoise_plain
+
+    g = torch.Generator(device=dev).manual_seed(h * 1000 + w)
+    rad = 2 * torch.rand((h, w, 3), device=dev, generator=g)
+    nrm = torch.randn((h, w, 3), device=dev, generator=g)
+    dep = 50 * torch.rand((h, w), device=dev, generator=g)
+    kb.reset_launches()
+    got = denoise(rad, nrm, dep, stepwidth)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["denoise"] == 1
+    ref = denoise_plain(rad, nrm, dep, stepwidth)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_denoise_kernel_refuses_grad_inputs_on_card(dev):
+    """The kernel has no backward: a radiance that requires grad under grad
+    mode raises ValueError before any launch; under no_grad it launches."""
+    from cpppathtracer_tpu_torch.ops.cuda.denoise_kernel import denoise, denoise_plain
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rad = torch.rand((24, 32, 3), device=dev, generator=g).requires_grad_()
+    nrm = torch.randn((24, 32, 3), device=dev, generator=g)
+    dep = torch.rand((24, 32), device=dev, generator=g)
+    kb.reset_launches()
+    with pytest.raises(ValueError, match="no backward"):
+        denoise(rad, nrm, dep)
+    assert kb.LAUNCHES["denoise"] == 0
+    with torch.no_grad():
+        got = denoise(rad, nrm, dep)
+        ref = denoise_plain(rad, nrm, dep)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["denoise"] == 1 and torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def _serving_scene(dev, which, size=64):
+    from cpppathtracer_tpu_torch.models.presets import big_camera, big_scene
+    from cpppathtracer_tpu_torch.ops.texture import procedural_sky
+
+    sky = torch.from_numpy(procedural_sky(64, 64)).to(dev)
+    if which == "bvh":
+        return big_scene(4096, device=dev), big_camera(4096, size, size, device=dev), sky
+    cam = Camera.make(size, size, origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0),
+                      device=dev)
+    return demo_scene(0).build(device=dev), cam, sky
+
+
+def _bits_equal(a, b):
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["demo", "bvh"])
+def test_render_radiance_jit_bitwise_on_card(dev, which):
+    """render_radiance_jit replays its CUDA graphs bitwise equal to the
+    eager render_radiance (demo_scene(0) on the megakernel, big_scene(4096)
+    on the BVH walk, 64^2 x 4 spp x d8, at two sample offsets), and a
+    replay adds the kernels' launches of the eager render."""
+    from cpppathtracer_tpu_torch.integrator import (
+        RENDER_GRAPHS, render_radiance, render_radiance_jit,
+    )
+
+    scene, cam, sky = _serving_scene(dev, which)
+    RENDER_GRAPHS.clear()
+    captures = RENDER_GRAPHS.captures
+    with torch.no_grad():
+        for offset in (0, 5):
+            kw = dict(spp=4, max_depth=8, seed=3, sample_offset=offset)
+            got = render_radiance_jit(scene, cam, sky, **kw)
+            kb.reset_launches()
+            got = render_radiance_jit(scene, cam, sky, **kw)
+            torch.cuda.synchronize()
+            replayed = dict(kb.LAUNCHES)
+            kb.reset_launches()
+            ref = render_radiance(scene, cam, sky, **kw)
+            torch.cuda.synchronize()
+            assert replayed == kb.LAUNCHES and sum(replayed.values()) > 0
+            assert _bits_equal(got, ref)
+    assert RENDER_GRAPHS.captures - captures == 2  # the first chunk's body and a later one's
+    RENDER_GRAPHS.clear()
+
+
+@pytest.mark.gpu
+def test_render_radiance_jit_replays_after_in_place_edit_on_card(dev):
+    """An in-place edit of kd and a moved camera between replays: bitwise
+    the eager render of the edited scene, with no new capture."""
+    from cpppathtracer_tpu_torch.integrator import (
+        RENDER_GRAPHS, render_radiance, render_radiance_jit,
+    )
+
+    scene, cam, sky = _serving_scene(dev, "demo")
+    RENDER_GRAPHS.clear()
+    kw = dict(spp=2, max_depth=8, seed=0)
+    with torch.no_grad():
+        render_radiance_jit(scene, cam, sky, **kw)
+        captures = RENDER_GRAPHS.captures
+        scene.kd.mul_(0.5)
+        cam = cam.move_forward(2.0)
+        got = render_radiance_jit(scene, cam, sky, **kw)
+        assert _bits_equal(got, render_radiance(scene, cam, sky, **kw))
+    assert RENDER_GRAPHS.captures == captures
+    RENDER_GRAPHS.clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("denoise", [True, False])
+def test_progressive_frames_graphed_bitwise_on_card(dev, denoise):
+    """Four frames of ProgressiveRenderer.step (its CUDA graph) bitwise
+    equal to the eager frame_step, the denoise kernel launched once a frame
+    when on."""
+    from cpppathtracer_tpu_torch.renderer import (
+        AccumulatorState, ProgressiveRenderer, RenderConfig, frame_step,
+    )
+
+    scene, cam, sky = _serving_scene(dev, "demo")
+    cfg = RenderConfig(width=64, height=64, max_depth=8, denoise=denoise)
+    r = ProgressiveRenderer(scene, cam, sky, cfg)
+    state = AccumulatorState.create(64, 64, dev)
+    for k in range(4):
+        kb.reset_launches()
+        img = r.step()  # the first step also warms the frame's body up and captures it
+        torch.cuda.synchronize()
+        frame_launches = dict(kb.LAUNCHES)
+        state, ref = frame_step(scene, cam, sky, state, cfg.seed, cfg.max_depth, denoise)
+        assert torch.equal(img.view(torch.int32), ref.view(torch.int32))
+        if k:
+            assert frame_launches["denoise"] == int(denoise) and frame_launches["mega_trace"] == 2
+    assert r.graphs.captures == 1 and r.state.sample_idx == 4
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises_and_runs_nothing_eagerly_on_card(dev, monkeypatch):
+    """A body that reads a value on the host cannot be captured: the call
+    raises, and after the warm-up (one eager run of the body) nothing runs
+    in the graph's place.  The card stays usable."""
+    from cpppathtracer_tpu_torch import integrator
+    from cpppathtracer_tpu_torch.utils.graphs import GraphedCall
+
+    scene, cam, sky = _serving_scene(dev, "demo")
+    epilogue = integrator.sky_epilogue
+
+    def syncing_epilogue(*args):
+        out = epilogue(*args)
+        float(out.sum())  # a host read: capture refuses it
+        return out
+
+    monkeypatch.setattr(integrator, "sky_epilogue", syncing_epilogue)
+    kb.reset_launches()
+    with torch.no_grad(), pytest.raises(RuntimeError, match="capture"):
+        integrator.render_graphed(GraphedCall(), scene, cam, sky, spp=1, max_depth=8)
+    assert kb.LAUNCHES["mega_trace"] == 2  # the warm-up's sample alone
+    monkeypatch.setattr(integrator, "sky_epilogue", epilogue)
+    with torch.no_grad():
+        out = integrator.render_radiance(scene, cam, sky, spp=1, max_depth=8)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[0]).all()
+
+
+@pytest.mark.gpu
+def test_serving_calls_off_the_current_device_on_card(dev):
+    """With the scene on cuda:1 and cuda:0 current, render_radiance_jit (at
+    two sample offsets through one capture) and four ProgressiveRenderer
+    steps with the denoiser are bitwise the eager render_radiance and
+    frame_step: the graphs are captured and replayed on the scene's card,
+    and the current device is left as it was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from cpppathtracer_tpu_torch.integrator import (
+        RENDER_GRAPHS, render_radiance, render_radiance_jit,
+    )
+    from cpppathtracer_tpu_torch.renderer import (
+        AccumulatorState, ProgressiveRenderer, RenderConfig, frame_step,
+    )
+
+    torch.cuda.set_device(0)
+    dev1 = torch.device("cuda:1")
+    scene, cam, sky = _serving_scene(dev1, "demo")
+    RENDER_GRAPHS.clear()
+    captures = RENDER_GRAPHS.captures
+    with torch.no_grad():
+        for offset in (0, 5):
+            kw = dict(spp=4, max_depth=8, seed=3, sample_offset=offset)
+            got = render_radiance_jit(scene, cam, sky, **kw)
+            ref = render_radiance(scene, cam, sky, **kw)
+            torch.cuda.synchronize(dev1)
+            assert got[0].device == dev1 and _bits_equal(got, ref)
+    assert RENDER_GRAPHS.captures - captures == 2
+    RENDER_GRAPHS.clear()
+    cfg = RenderConfig(width=64, height=64, max_depth=8, denoise=True)
+    r = ProgressiveRenderer(scene, cam, sky, cfg)
+    state = AccumulatorState.create(64, 64, dev1)
+    for _ in range(4):
+        img = r.step()
+        state, ref = frame_step(scene, cam, sky, state, cfg.seed, cfg.max_depth, True)
+        torch.cuda.synchronize(dev1)
+        assert img.device == dev1 and torch.equal(img.view(torch.int32), ref.view(torch.int32))
+    assert r.graphs.captures == 1 and torch.cuda.current_device() == 0

@@ -28,7 +28,7 @@ from cpppathtracer_tpu_torch.interactive import apply_key, frame_to_ansi, run
 from cpppathtracer_tpu_torch.models.camera import Camera
 from cpppathtracer_tpu_torch.models.presets import PRESETS
 from cpppathtracer_tpu_torch.models.scene import SceneBuilder
-from cpppathtracer_tpu_torch.ops.denoise import denoise
+from cpppathtracer_tpu_torch.ops.cuda.denoise_kernel import denoise
 from cpppathtracer_tpu_torch.ops.texture import procedural_sky
 from cpppathtracer_tpu_torch.renderer import (
     AccumulatorState,

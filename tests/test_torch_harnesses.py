@@ -168,6 +168,19 @@ def test_scaling_harness_on_cpu(tmp_path):
     assert {f: (REPO / f).read_bytes() for f in jax_files} == jax_files
 
 
+def test_scaling_harness_rank_past_its_limit_shows_its_stacks(tmp_path):
+    """A procs rank still running at --rank-timeout prints its threads'
+    stacks and exits non-zero, and the run fails with its exit code and
+    writes no result."""
+    out = tmp_path / "scaling.json"
+    proc = _run(["scripts/torch_bench_scaling.py", "--device", "cpu", "--counts", "1",
+                 "--tile", "8", "--spp", "1", "--depth", "2", "--mode", "procs",
+                 "--rank-timeout", "0.01", "--out", str(out)], tmp_path)
+    assert proc.returncode != 0 and proc.stdout == "" and not out.exists()
+    assert "Timeout" in proc.stderr and "rank_main" in proc.stderr
+    assert "rank exit codes [1]" in proc.stderr
+
+
 def test_sharded_loss_matches_jax_over_two_devices():
     """The port's make_sharded_loss over a 1x2 mesh of "cpu" entries, its
     value and kd / emission gradients by torch.autograd.grad, against JAX's
@@ -207,11 +220,12 @@ def test_sharded_loss_matches_jax_over_two_devices():
 
 def test_progressive_harness_on_cpu(tmp_path):
     """2 frames of 16x12 at d2: one stdout line with the denoiser on and
-    off, in that order, and no device busy time from a CPU run."""
+    off, in that order, and no device busy time and no frame graph from a
+    CPU run."""
     proc = _run(["scripts/torch_perf_progressive.py", "--device", "cpu", "--frames", "2",
                  "--size", "16x12", "--depth", "2"], tmp_path)
     summary = _one_line(proc)
-    assert summary["device"] == "cpu"
+    assert summary["device"] == "cpu" and summary["graphed"] is False
     assert [r["denoise"] for r in summary["progressive"]] == [True, False]
     for r in summary["progressive"]:
         assert sorted(r) == ["busy_ms", "denoise", "fps", "ms_per_frame"]

@@ -26,7 +26,7 @@ from cpppathtracer_tpu_torch.models.camera import Camera
 from cpppathtracer_tpu_torch.models.scene import SceneBuilder, demo_scene
 from cpppathtracer_tpu_torch.ops import mega
 from cpppathtracer_tpu_torch.ops.cuda import build as kb
-from cpppathtracer_tpu_torch.ops.denoise import denoise
+from cpppathtracer_tpu_torch.ops.cuda.denoise_kernel import denoise
 from cpppathtracer_tpu_torch.ops.fast import group_scene
 from cpppathtracer_tpu_torch.renderer import (
     AccumulatorState,
