@@ -48,8 +48,9 @@ scaling and progressive harnesses (scripts/torch_bench_video.py,
 torch_bench_scaling.py and torch_perf_progressive.py in subprocesses at
 cut sizes, each output checked; ``[harness]`` lines), then phase 14: the
 compiled serving calls and the denoise kernel (csrc/denoise.cu bitwise
-against its plain version on the 1280x720 frame's buffers and on random
-inputs at odd sizes; ``render_radiance_jit``'s CUDA graphs bitwise against
+against its plain version on the 1280x720 frame's buffers, on random
+inputs at odd sizes and tile edges and on a frame with inf and NaN, at
+stepwidths 0-3; ``render_radiance_jit``'s CUDA graphs bitwise against
 ``render_radiance`` on the demo, textured, big_scene(16384) and route A
 renders; replays after in-place and value edits with no recapture; 16
 compiled progressive frames bitwise against ``frame_step``, the denoiser on
@@ -145,29 +146,98 @@ def time_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, attempts=3):
-    """Device time per call of fn() under torch.profiler: the summed device
-    time of the kernels, memsets and copies it issues over `iters` calls,
-    and the time per call of each by name.  A profile that recorded no
-    device event at all (the profiler's tracing dropped out, seen once in
-    some hundred profiles on the H100) is taken again, up to `attempts`
-    times."""
+# the categories of device records, and of host calls, in torch.profiler's Chrome trace
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def device_records(fn, need=(), attempts=3):
+    """What the device ran while fn() ran (to a synchronize; a graph's
+    replay included), from the profile's Chrome trace: ({name: [device ms
+    of each record]} of every kernel, memcpy and memset, [the names of each
+    host call's device records, in the order of the calls, or None where
+    the profiler kept none]).  The host calls are the runtime and driver
+    calls of the kinds that have device records in this profile (launches,
+    copies, memsets, a graph's replays), paired with them by correlation.
+    The profiler loses some device records: on the H100 phase 14 kept
+    181-188 of 200 denoise launches, the first ones of the profile lost,
+    where scripts/torch_profiler_records.py, profiling first in its
+    process, kept every one.  A profile with no
+    device record at all (the profiler's tracing dropped out, seen a few
+    times in some hundred profiles on the H100), or with no record of a
+    kernel of `need` (a CUDA function's name, as KERNEL_OF gives it), is
+    taken again, up to `attempts` profiles."""
     from torch.profiler import ProfilerActivity, profile
 
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        for _ in range(attempts):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+            recs, of_call = {}, {}
+            for e in events:
+                if e.get("cat") in DEVICE_CATS and e.get("ph") == "X":
+                    recs.setdefault(e["name"], []).append(e["dur"] / 1e3)
+                    of_call.setdefault(e.get("args", {}).get("correlation"), []).append(e["name"])
+            host = sorted((e["args"]["correlation"], e["name"]) for e in events
+                          if e.get("cat") in HOST_CATS and "correlation" in e.get("args", {}))
+            issuing = {name for c, name in host if c in of_call}
+            calls = [of_call.get(c) for c, name in host if name in issuing]
+            if recs and all(any(function_of(k) == n for k in recs) for n in need):
+                return recs, calls
+    raise AssertionError(f"torch.profiler recorded no device time, or none of {list(need)}")
+
+
+def function_of(name):
+    """The CUDA function of a device record's name (its template arguments
+    and parameters left out)."""
+    m = re.match(r"(?:void )?(\w+)[<(]", name)
+    return m.group(1) if m else name
+
+
+def records_per_call(calls, iters):
+    """{name: device records a call} of `iters` calls that issue the same
+    work, from device_records' host calls: the k-th host call of each call
+    issues the same, so where the profiler lost its records in one call,
+    another call's say what it ran."""
+    if not calls or len(calls) % iters:
+        raise AssertionError(f"{len(calls)} host calls with device work for {iters} calls")
+    k = len(calls) // iters
+    out = {}
+    for j in range(k):
+        names = next((c for c in calls[j::k] if c), None)
+        if names is None:
+            raise AssertionError(f"host call {j} of {k} kept no device record in {iters} calls")
+        for n in names:
+            out[n] = out.get(n, 0) + 1
+    return out
+
+
+def device_ms(fn, iters=20):
+    """Device time per call of fn() over `iters` calls under torch.profiler:
+    for each kernel, memset and copy by name, the mean time of its records
+    times its launches a call (records_per_call), with its records kept
+    and its launches in all; and the sum of those.  Returns (ms a call,
+    {name: (ms a call, records kept, launches)})."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
-            break
-    else:
-        raise AssertionError("torch.profiler recorded no device time")
-    return (sum(e.device_time_total for e in events) / 1e3 / iters,
-            {e.key[:40]: round(e.device_time_total / 1e3 / iters, 5) for e in events})
+
+    def calls():
+        for _ in range(iters):
+            fn()
+
+    recs, host = device_records(calls)
+    per_call = records_per_call(host, iters)
+    by_name = {}
+    for name, times in recs.items():
+        ms, n, k = by_name.get(name[:40], (0.0, 0, 0))
+        by_name[name[:40]] = (ms + sum(times) / len(times) * per_call[name], n + len(times),
+                              k + per_call[name] * iters)
+    return (sum(ms for ms, _, _ in by_name.values()),
+            {k: (round(ms, 5), n, m) for k, (ms, n, m) in by_name.items()})
 
 
 def host_ms(fn, iters=50):
@@ -1751,7 +1821,8 @@ def ladder_phase(dev, scene, camera, sky):
             wall = (time.perf_counter() - t0) * 1e3 / 4
         stats[name] = dev_ms
         log(f"[split2] {name} ({switches}): one 1024^2 x d{DEPTH} sample, device {dev_ms:.4f} ms "
-            f"(torch.profiler; {by_kernel}), {ms:.4f} ms by CUDA events, launches {launches}; "
+            f"(torch.profiler; ms a call, records kept and launches of 10 calls by name {by_kernel}), {ms:.4f} ms "
+            f"by CUDA events, launches {launches}; "
             f"the 4-spp render {wall:.3f} ms/sample wall")
     ref = out["unsplit"]
     paths = lambda s: [s[3], *s[4], s[5], *s[6]]
@@ -1977,11 +2048,15 @@ def harness_phase(card, progressive_ms):
             and all(r["busy_ms"] > 0 for r in settings.values())):
         raise AssertionError(f"progressive harness: {progressive} (phase 4: {progressive_ms} ms)")
 
-# FP32 operations a tap of the denoiser (csrc/denoise.cu, counted as above): the colour and
-# normal distances 9 each (3 subtractions, 3 squares, 2 adds, the 1/pi scale), the depth
-# distance 3, the weight 4 multiplies, num and den 7, and 3 expf counted one each; and the
-# 3 divisions of a pixel.  Bytes: 7 floats read and 3 written a pixel.
-OPS_DENOISE_TAP, OPS_DENOISE_PIXEL, BYTES_DENOISE_PIXEL = 9 + 9 + 3 + 4 + 7 + 3, 3, 4 * (7 + 3)
+# FP32 operations of the denoiser (csrc/denoise.cuh, counted as above): a weight factor
+# (c_w * n_w) * p_w: the colour and normal distances 9 each (3 subtractions, 3 squares, 2
+# adds, the 1/pi scale), the depth distance 3, 3 expf counted one each, 2 multiplies; a tap's
+# sums: valid and k 2 multiplies, num and den 7; the 3 divisions of a pixel.  Bytes: 7
+# floats read and 3 written a pixel.
+OPS_DENOISE_FACTOR, OPS_DENOISE_TAP_SUM = 9 + 9 + 3 + 3 + 2, 2 + 7
+OPS_DENOISE_PIXEL, BYTES_DENOISE_PIXEL = 3, 4 * (7 + 3)
+# the instance stepwidth 1 launches: denoise_kernel<1, true>
+DENOISE_STEP1 = "_Z14denoise_kernelILi1ELb1EEvPKfS1_S1_Pfiii"
 # the SFU's rate for the ex2 of each expf: 16 a clock an SM
 SFU_PER_S = 132 * 16 * 1.98e9
 # the CUDA function that each launch counter of ops/cuda/build.py counts (one <<<>>> a call)
@@ -1993,35 +2068,18 @@ KERNEL_OF = dict(mega_trace="mega_trace_kernel", mega_trace_aux="mega_trace_kern
 FP32_PIPE_OPS = ("FADD", "FMUL", "FFMA", "FMNMX")
 
 
-def ulps(a, b):
-    """The largest distance in units in the last place between two f32
-    tensors of one sign pattern (as their int32 bit patterns)."""
-    return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
-
-
-def profiled_kernels(fn, need=(), attempts=3):
-    """{CUDA function: (records, device ms)} of the port's kernels in the
-    device's own records that torch.profiler kept while fn() ran (to a
-    synchronize; a graph's replay included).  The profiler loses some
-    records (188 of 200 launches kept once on the H100), so the counts
-    are at most the launches.  A profile that lacks a function of `need`
-    is taken again, up to `attempts` profiles."""
-    from torch.profiler import ProfilerActivity, profile
-
+def profiled_kernels(fn, need=()):
+    """{CUDA function: (records, device ms)} of the port's kernels among the
+    device records of fn() (device_records; a function of `need` missing
+    takes the profile again)."""
     names = set(KERNEL_OF.values())
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        out = {}
-        for e in prof.key_averages():
-            m = re.match(r"(?:void )?(\w+)[<(]", e.key)
-            if e.device_type == torch.autograd.DeviceType.CUDA and m and m.group(1) in names:
-                n, t = out.get(m.group(1), (0, 0.0))
-                out[m.group(1)] = (n + e.count, t + e.device_time_total / 1e3)
-        if all(k in out for k in need):
-            return out
-    raise AssertionError(f"torch.profiler recorded none of {sorted(set(need) - set(out))}")
+    out = {}
+    for name, recs in device_records(fn, need=need)[0].items():
+        f = function_of(name)
+        if f in names:
+            n, t = out.get(f, (0, 0.0))
+            out[f] = (n + len(recs), t + sum(recs))
+    return out
 
 
 def seen_within(seen, counted):
@@ -2064,8 +2122,8 @@ def graph_loop_ms(fn, n, replays=5):
 
 def sass_opcodes(lib_path, mangled):
     """Opcode counts of one function's SASS in the kernel library, from
-    cuobjdump beside nvcc (a static count: the denoiser's taps are
-    unrolled, so each runs once a thread), or None without the tool."""
+    cuobjdump beside nvcc (a static count: each instruction once), or None
+    without the tool; opcodes without their modifiers, and LDS.128 apart."""
     from cpppathtracer_tpu_torch.ops.cuda import build as kb
 
     tool = Path(kb._nvcc()).parent / "cuobjdump"
@@ -2078,9 +2136,11 @@ def sass_opcodes(lib_path, mangled):
         if "Function :" in line:
             inside = line.split("Function :")[1].strip() == mangled
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(\S*)", line)
         if inside and m:
             counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+            if m.group(1) == "LDS" and ".128" in m.group(2):
+                counts["LDS.128"] = counts.get("LDS.128", 0) + 1
     return counts or None
 
 
@@ -2103,12 +2163,16 @@ def first_call_cost(fn):
 def compiled_phase(dev, card, scene, camera, sky, progressive_ms, lib_path):
     """Phase 14: the compiled serving calls and the denoise kernel.
     (a) csrc/denoise.cu against its plain version: on the progressive
-    frame's own buffers at 1280x720 and on seeded random inputs at odd
-    sizes (H or W under 5 among them), stepwidths 1 and 2, bitwise (else
-    the largest distance in ulps, held to 2); its time beside its bound
-    and the plain version's: by CUDA events around the wrapper, the mean
-    device time of the kernel records of 200 launches, and a CUDA graph of 100
-    launches timed by events; its SASS opcode counts.  (b)
+    frame's own buffers at 1280x720, on seeded random inputs at odd sizes
+    (H or W under 5 among them, the 32 x 16 tile exactly, one pixel under
+    and over a multiple of it in each direction) and on the frame with
+    inf and NaN radiance, stepwidths 0-3 and 17 (the tiled kernel of
+    stepwidth 1 and the untiled one of the others), bitwise, NaN where the plain version is NaN; its time
+    beside its bound (each pair's weight factor counted once; also with 25
+    factors a pixel, every pixel's own) and the plain version's: by CUDA
+    events around the wrapper, the mean device time of the kernel records
+    of 200 launches, and a CUDA graph of 100 launches timed by events; the
+    SASS opcode counts of its stepwidth-1 instance.  (b)
     render_radiance_jit against render_radiance bitwise on demo_scene(0)
     at 1024^2 x 64 spp x d8, the textured demo at 1024^2 x 4 spp,
     big_scene(16384) at 1024^2 x 4 spp x d8 and route A at 512^2 x 2 spp x
@@ -2144,60 +2208,84 @@ def compiled_phase(dev, card, scene, camera, sky, progressive_ms, lib_path):
                 t0.reshape(PROG_H, PROG_W))
     g = torch.Generator(device=dev).manual_seed(13)
     cases = [("frame 1280x720", frame_in)]
-    for h, w in ((721, 1281), (29, 37), (3, 17), (4, 2), (1, 1)):
+    # odd sizes, H or W under 5, the 32 x 16 tile exactly, one pixel under and over a multiple
+    # of it in each direction
+    for h, w in ((721, 1281), (29, 37), (3, 17), (4, 2), (1, 1), (16, 32), (15, 31), (17, 33),
+                 (31, 65), (33, 63)):
         cases.append((f"random {w}x{h}", (2 * torch.rand((h, w, 3), device=dev, generator=g),
                                           torch.randn((h, w, 3), device=dev, generator=g),
                                           50 * torch.rand((h, w), device=dev, generator=g))))
-    worst_ulps, max_err, n_checked = 0, 0.0, 0
+    bad = frame_in[0].clone()  # the frame with inf and NaN radiance, edges and inside
+    for y, x, c, v in ((PROG_H // 2, PROG_W // 3, 0, float("inf")), (0, PROG_W - 1, 1, float("nan")),
+                       (PROG_H - 1, 0, 2, -float("inf")), (PROG_H // 3, PROG_W // 2, 1, float("nan"))):
+        bad[y, x, c] = v
+    cases.append(("frame 1280x720 with inf and NaN", (bad, *frame_in[1:])))
+    max_err, failed, n_checked, n_nan = 0.0, [], 0, 0
     for what, args in cases:
-        for step in (1, 2):
+        for step in (0, 1, 2, 3, 17):  # 1: the tiled kernel; the others the untiled one
             got, ref = denoise(*args, step), denoise_plain(*args, step)
             n_checked += 1
-            if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
-                worst_ulps = max(worst_ulps, ulps(got, ref))
-                max_err = max(max_err, float((got - ref).abs().max()))
-                log(f"[denoise] {what} stepwidth {step}: not bitwise, {ulps(got, ref)} ulps "
-                    f"at most, max |d| {float((got - ref).abs().max()):.3e}")
+            nan = torch.isnan(ref)
+            n_nan += int(nan.sum())
+            if not (torch.equal(torch.isnan(got), nan)
+                    and torch.equal(got[~nan].view(torch.int32), ref[~nan].view(torch.int32))):
+                fin = torch.isfinite(got) & torch.isfinite(ref)
+                err = float((got[fin] - ref[fin]).abs().max()) if fin.any() else float("nan")
+                max_err = max(max_err, err)
+                failed.append((what, step))
+                log(f"[denoise] {what} stepwidth {step}: not bitwise (NaN masks equal "
+                    f"{torch.equal(torch.isnan(got), nan)}), max |d| {err:.3e}")
     log(f"[check] denoise kernel vs plain version on {n_checked} cases (the 1280x720 frame's "
-        f"buffers, random inputs at 1281x721, 37x29, 17x3, 2x4, 1x1; stepwidths 1 and 2): "
-        f"{'bitwise equal' if worst_ulps == 0 else f'{worst_ulps} ulps at most'}")
-    if worst_ulps > 2:
-        raise AssertionError(f"the denoise kernel differs from its plain version by "
-                             f"{worst_ulps} ulps")
+        f"buffers, random inputs at 1281x721, 37x29, 17x3, 2x4, 1x1, 32x16, 31x15, 33x17, 65x31, "
+        f"63x33, the frame with inf and NaN radiance ({n_nan} NaN outputs in all); stepwidths 0-3 and 17): "
+        f"{'bitwise equal, NaN where the plain version is' if not failed else f'{len(failed)} differ'}")
+    if failed:
+        raise AssertionError(f"the denoise kernel differs from its plain version on {failed}")
     dn = lambda: denoise(*frame_in)
     ms_dn = time_ms(dn, iters=50)
     def launches_200():
         for _ in range(200):
             dn()
 
-    n_rec, t_rec = profiled_kernels(launches_200, need=("denoise_kernel",))["denoise_kernel"]
-    dev_dn = t_rec / n_rec  # the mean of the records kept
+    recs, host = device_records(launches_200, need=("denoise_kernel",))
+    rec_dn = [t for k, ts in recs.items() if function_of(k) == "denoise_kernel" for t in ts]
+    n_rec, dev_dn = len(rec_dn), sum(rec_dn) / len(rec_dn)  # the mean of the records
+    lost = [i for i, c in enumerate(host) if c is None]
     graph_dn = graph_loop_ms(dn, 100)
     plain_dn = time_ms(lambda: denoise_plain(*frame_in), iters=5)
     px = PROG_W * PROG_H
-    ops_dn = px * (25 * OPS_DENOISE_TAP + OPS_DENOISE_PIXEL)
+    # the function's operations: each pair's weight factor once (12 and the centre's a pixel,
+    # csrc/denoise.cuh's pairs), beside the count of 25 factors a pixel, every pixel's own
+    ops_dn = px * (13 * OPS_DENOISE_FACTOR + 25 * OPS_DENOISE_TAP_SUM + OPS_DENOISE_PIXEL)
+    ops_25 = px * (25 * (OPS_DENOISE_FACTOR + OPS_DENOISE_TAP_SUM) + OPS_DENOISE_PIXEL)
     bytes_dn = px * BYTES_DENOISE_PIXEL
     by_dn = "operations" if ops_dn / FP32_OPS_PER_S > bytes_dn / HBM_BYTES_PER_S else "bytes"
     bound_dn = max(ops_dn / FP32_OPS_PER_S, bytes_dn / HBM_BYTES_PER_S) * 1e3
+    bound_25 = max(ops_25 / FP32_OPS_PER_S, bytes_dn / HBM_BYTES_PER_S) * 1e3
     log(f"[kernels] denoise {PROG_W}x{PROG_H}, stepwidth 1: {ms_dn:.5f} ms by events around the "
         f"wrapper; device {dev_dn:.5f} ms (the mean of the {n_rec} kernel records torch.profiler "
-        f"kept of 200 launches), {graph_dn:.5f} ms (a CUDA graph of 100 launches, by events); bound "
-        f"{bound_dn:.5f} ms ({by_dn}: {ops_dn:.4g} FP32 operations, "
+        f"kept of 200 launches; launches without a record, in order: {lost}), {graph_dn:.5f} ms (a CUDA graph of 100 launches, by events); bound "
+        f"{bound_dn:.5f} ms ({by_dn}: {ops_dn:.4g} FP32 operations with each pair's factor once, "
         f"{ops_dn / FP32_OPS_PER_S * 1e3:.5f} ms; {bytes_dn / 1e6:.2f} MB, "
-        f"{bytes_dn / HBM_BYTES_PER_S * 1e3:.5f} ms); --fmad=false floor of the counted "
-        f"operations {ops_dn / FP32_INSTR_PER_S * 1e3:.5f} ms; the expf's ex2 on the SFU "
-        f"{75 * px / SFU_PER_S * 1e3:.5f} ms; plain {plain_dn:.4f} ms; {card}")
-    sass = sass_opcodes(lib_path, "_Z14denoise_kernelPKfS0_S0_Pfiii")
+        f"{bytes_dn / HBM_BYTES_PER_S * 1e3:.5f} ms), {graph_dn and bound_dn / graph_dn:.3f} of it; "
+        f"with 25 factors a pixel {bound_25:.5f} ms ({ops_25:.4g} operations), "
+        f"{graph_dn and bound_25 / graph_dn:.3f} of it; --fmad=false floor of the counted "
+        f"operations {ops_dn / FP32_INSTR_PER_S * 1e3:.5f} ms (25 factors "
+        f"{ops_25 / FP32_INSTR_PER_S * 1e3:.5f}); the expf's ex2 on the SFU "
+        f"{39 * px / SFU_PER_S * 1e3:.5f} ms (25 factors {75 * px / SFU_PER_S * 1e3:.5f}); plain "
+        f"{plain_dn:.4f} ms; {card}")
+    sass = sass_opcodes(lib_path, DENOISE_STEP1)
     if sass is None:
         log("[sass] denoise_kernel: cuobjdump not found beside nvcc; not counted")
     else:
         fp32 = sum(sass.get(op, 0) for op in FP32_PIPE_OPS)
         top = dict(sorted(sass.items(), key=lambda kv: -kv[1])[:16])
-        log(f"[sass] denoise_kernel (static, the 25 taps unrolled): {sum(sass.values())} "
-            f"instructions, {fp32} on the FP32 pipe ({', '.join(f'{op} {sass.get(op, 0)}' for op in FP32_PIPE_OPS)}), "
-            f"MUFU {sass.get('MUFU', 0)}; the FP32 pipe's floor at {PROG_W}x{PROG_H} "
-            f"{fp32 * px / FP32_INSTR_PER_S * 1e3:.5f} ms, every instruction's issue floor "
-            f"{sum(sass.values()) * px / FP32_INSTR_PER_S * 1e3:.5f} ms; opcodes {top}")
+        n_sass = sum(n for op, n in sass.items() if "." not in op)
+        log(f"[sass] {DENOISE_STEP1} (denoise_kernel<1, true>, static: each instruction once, the "
+            f"loops' bodies and both the interior and the edge taps): {n_sass} instructions, "
+            f"{fp32} on the FP32 pipe ({', '.join(f'{op} {sass.get(op, 0)}' for op in FP32_PIPE_OPS)}), "
+            f"MUFU {sass.get('MUFU', 0)}, LDS {sass.get('LDS', 0)} (LDS.128 "
+            f"{sass.get('LDS.128', 0)}); opcodes {top}")
 
     # (b) render_radiance_jit against render_radiance on each route
     tex_scene, tex = textured_scene(scene, dev)
@@ -2647,9 +2735,9 @@ def main():
             ("stream_expand", ms_e, host_e, dev_e, bound_e, lib_e, lib_dev_e, names_e, lib_names_e,
              plain_e)):
         log(f"[kernels] {what}: wrapper {ms:.5f} ms (host enqueue {host:.5f} ms), device "
-            f"{dev_ms:.5f} ms ({names}), bound {bound * 1e3:.5f} ms ({bound / (dev_ms * 1e-3):.3f} "
-            f"of it on the device); library wrapper {lib:.5f} ms, device {lib_dev:.5f} ms "
-            f"({lib_names}); plain {plain:.4f} ms")
+            f"{dev_ms:.5f} ms (ms a call, records kept and launches of 20 calls by name: {names}), bound "
+            f"{bound * 1e3:.5f} ms ({bound / (dev_ms * 1e-3):.3f} of it on the device); library "
+            f"wrapper {lib:.5f} ms, device {lib_dev:.5f} ms ({lib_names}); plain {plain:.4f} ms")
     log(f"[kernels] compaction bytes {bytes_c / 1e6:.2f} MB ({bytes_c_all / 1e6:.2f} MB with every "
         f"payload word read, {bytes_c_all / HBM_BYTES_PER_S * 1e3:.5f} ms; every lane of every plane "
         f"{4 * r * (2 + 2 * n_pay) / HBM_BYTES_PER_S * 1e3:.5f} ms); expansion {bytes_e / 1e6:.2f} MB")

@@ -10,113 +10,99 @@
 // (ops/cuda/denoise_kernel.py::denoise_plain) is some 25 x 20 small
 // PyTorch kernels over the frame.
 //
-// Design: one thread a pixel, blocks of 32 x 8 pixels.  A block stages its
-// tile and a halo of 2 * stepwidth pixels on each side of radiance, normal
-// and depth in shared memory, as seven float planes (zeros outside the
-// image, as the plain version's padding), with coalesced loads; 12 KB at
-// stepwidth 1, 18 KB at 2.  Each thread then runs the 25 taps in the plain
-// version's order (i over x offsets outer, j over y offsets inner) with its
-// arithmetic, each operation rounded alone (the library is built with
-// --fmad=false): the squared distances summed over the channels as
-// (c0 + c1) + c2, times -1/pi as float32, expf, the weight
-// ((c_w * n_w) * p_w) * valid * k, num += wgt * tap, den += wgt, and
-// num / den.  A tap outside the image reads zeros and has valid = 0, so
-// its weight is exactly 0, as in the plain version.
-//
 // What bounds it on an H100: at 1280 x 720, 7 floats read and 3 written a
-// pixel (36.9 MB, 0.011 ms at 3.35 TB/s) against some 32 FP32 operations
-// and 3 expf a tap (8.1e8 operations, 0.012 ms at 67 TFLOP/s; the 6.9e7
-// expf take their ex2 on the SFU, 16 a clock an SM, some 0.017 ms).  The
-// halo read from shared memory keeps device memory traffic at the bound's
-// bytes; the taps are arithmetic in registers.
+// pixel (36.9 MB, 0.011 ms at 3.35 TB/s) against its FP32 work: with each
+// pair's weight factor computed once, 12 factors and the centre's a pixel
+// and the 25 taps' sums, some 5.2e8 operations (0.008 ms at 67 TFLOP/s;
+// 8.1e8 and 0.012 ms with 25 factors a pixel), so bytes bound it.  The
+// kernel is built with --fmad=false, so every multiply and add issues
+// alone, and each expf is some eight instructions: what the card issues,
+// not the bytes, sets its pace.  The design (csrc/denoise.cuh)
+// keeps the bytes at the bound's (one coalesced read of the tile and its
+// halo into shared memory) and cuts the instructions and shared loads a
+// pixel: constant tap offsets, 16-byte shared loads, no bounds tests
+// inside the image, each pair's weight computed once, and shared taps read
+// once for several pixels of a thread.
+//
+// One block of DN_THREADS threads covers a DN_BX x DN_BY tile: stage,
+// __syncthreads, the pair factors, __syncthreads, the taps.  At stepwidth
+// 1 (every caller's) it holds 54 KB of shared memory, so four blocks share
+// an SM; other stepwidths run the untiled kernel at the end.
 
 #include <cuda_runtime.h>
 
-#define POCA_DN_BX 32
-#define POCA_DN_BY 8
+#include <atomic>
 
-// float32(1 / pi), as ops/cuda/denoise_kernel.py's _INV_PI
-#define POCA_INV_PI 0x1.45f306p-2f
+#include "denoise.cuh"
 
-__constant__ float poca_dn_k[25] = {
-    1.f, 4.f, 7.f, 4.f, 1.f,
-    4.f, 16.f, 26.f, 16.f, 4.f,
-    7.f, 26.f, 41.f, 26.f, 7.f,
-    4.f, 16.f, 26.f, 16.f, 4.f,
-    1.f, 4.f, 7.f, 4.f, 1.f,
-};
-
-__global__ void __launch_bounds__(POCA_DN_BX * POCA_DN_BY)
+template <int S, bool PAIRS>
+__global__ void __launch_bounds__(DN_THREADS, 1024 / DN_THREADS)
 denoise_kernel(const float* __restrict__ rad, const float* __restrict__ nrm,
                const float* __restrict__ dep, float* __restrict__ out, int H, int W, int step) {
-  extern __shared__ float sm[];
-  const int r = 2 * step;
-  const int tw = POCA_DN_BX + 2 * r;
-  const int tn = tw * (POCA_DN_BY + 2 * r);
-  float* const s_c0 = sm;
-  float* const s_c1 = sm + tn;
-  float* const s_c2 = sm + 2 * tn;
-  float* const s_n0 = sm + 3 * tn;
-  float* const s_n1 = sm + 4 * tn;
-  float* const s_n2 = sm + 5 * tn;
-  float* const s_d = sm + 6 * tn;
-  const int x0 = blockIdx.x * POCA_DN_BX - r;
-  const int y0 = blockIdx.y * POCA_DN_BY - r;
-  for (int k = threadIdx.y * POCA_DN_BX + threadIdx.x; k < tn; k += POCA_DN_BX * POCA_DN_BY) {
-    const int ty = k / tw;
-    const int gx = x0 + (k - ty * tw), gy = y0 + ty;
-    float c0 = 0.f, c1 = 0.f, c2 = 0.f, n0 = 0.f, n1 = 0.f, n2 = 0.f, d = 0.f;
-    if (gx >= 0 && gx < W && gy >= 0 && gy < H) {
-      const size_t p = (size_t)gy * W + gx;
-      c0 = rad[3 * p]; c1 = rad[3 * p + 1]; c2 = rad[3 * p + 2];
-      n0 = nrm[3 * p]; n1 = nrm[3 * p + 1]; n2 = nrm[3 * p + 2];
-      d = dep[p];
-    }
-    s_c0[k] = c0; s_c1[k] = c1; s_c2[k] = c2;
-    s_n0[k] = n0; s_n1[k] = n1; s_n2[k] = n2;
-    s_d[k] = d;
-  }
+  extern __shared__ float4 sm[];
+  const DnArgs a = {rad, nrm, dep, out, H, W};
+  const DnTile<S> g(step);
+  const bool interior = dn_interior(a, g, blockIdx.x, blockIdx.y);
+  dn_stage(a, g, sm, blockIdx.x, blockIdx.y, interior, threadIdx.x);
   __syncthreads();
-  const int px = blockIdx.x * POCA_DN_BX + threadIdx.x;
-  const int py = blockIdx.y * POCA_DN_BY + threadIdx.y;
-  if (px >= W || py >= H) return;
-  const int ct = (threadIdx.y + r) * tw + threadIdx.x + r;
-  const float c0 = s_c0[ct], c1 = s_c1[ct], c2 = s_c2[ct];
-  const float n0 = s_n0[ct], n1 = s_n1[ct], n2 = s_n2[ct];
-  const float d = s_d[ct];
-  float num0 = 0.f, num1 = 0.f, num2 = 0.f, den = 0.f;
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    const int dx = (i - 2) * step;
-    const bool in_x = px + dx >= 0 && px + dx < W;
-#pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      const int dy = (j - 2) * step;
-      const float valid = in_x && py + dy >= 0 && py + dy < H ? 1.f : 0.f;
-      const int t = ct + dy * tw + dx;
-      const float t0 = s_c0[t], t1 = s_c1[t], t2 = s_c2[t];
-      const float cd0 = c0 - t0, cd1 = c1 - t1, cd2 = c2 - t2;
-      const float nd0 = n0 - s_n0[t], nd1 = n1 - s_n1[t], nd2 = n2 - s_n2[t];
-      const float pd = d - s_d[t];
-      const float c_w = expf(-(cd0 * cd0 + cd1 * cd1 + cd2 * cd2) * POCA_INV_PI);
-      const float n_w = expf(-(nd0 * nd0 + nd1 * nd1 + nd2 * nd2) * POCA_INV_PI);
-      const float p_w = expf(-(pd * pd) * POCA_INV_PI);
-      const float wgt = c_w * n_w * p_w * valid * poca_dn_k[i * 5 + j];
-      num0 = num0 + wgt * t0;
-      num1 = num1 + wgt * t1;
-      num2 = num2 + wgt * t2;
-      den = den + wgt;
-    }
+  if (PAIRS) {
+    dn_pairs(g, sm, threadIdx.x);
+    __syncthreads();
   }
-  const size_t p = (size_t)py * W + px;
-  out[3 * p] = num0 / den;
-  out[3 * p + 1] = num1 / den;
-  out[3 * p + 2] = num2 / den;
+  if (interior)
+    dn_taps<S, PAIRS, false>(a, g, sm, blockIdx.x, blockIdx.y, threadIdx.x);
+  else
+    dn_taps<S, PAIRS, true>(a, g, sm, blockIdx.x, blockIdx.y, threadIdx.x);
 }
 
-// The dynamic shared memory of one block at this stepwidth.
-static size_t denoise_smem(int step) {
-  return sizeof(float) * 7 * (size_t)(POCA_DN_BX + 4 * step) * (POCA_DN_BY + 4 * step);
+// Any other stepwidth: one pixel a thread of a DN_BX x 8 block, every tap
+// read from device memory (dn_pixel), so no stepwidth outgrows shared
+// memory.  The same name as the tiled kernel's, so that the profiler's
+// records of both read "denoise_kernel".
+__global__ void __launch_bounds__(DN_BX * 8)
+denoise_kernel(const float* __restrict__ rad, const float* __restrict__ nrm,
+               const float* __restrict__ dep, float* __restrict__ out, int H, int W, int step) {
+  const DnArgs a = {rad, nrm, dep, out, H, W};
+  const int px = blockIdx.x * DN_BX + threadIdx.x % DN_BX;
+  const int py = blockIdx.y * 8 + threadIdx.x / DN_BX;
+  if (px < W && py < H) dn_pixel(a, step, px, py);
+}
+
+// Past 48 KB of shared memory a kernel opts in to the card's most: once a
+// device, on its first eager launch there.  A stream being captured into a
+// CUDA graph must not record that, and needs none: its eager warm-up
+// opted in.
+template <int S, bool PAIRS>
+static int dn_optin(cudaStream_t stream) {
+  static std::atomic<bool> done[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 64 && done[dev].load(std::memory_order_relaxed)) return 0;
+  cudaStreamCaptureStatus capturing;
+  e = cudaStreamIsCapturing(stream, &capturing);
+  if (e != cudaSuccess || capturing != cudaStreamCaptureStatusNone) return (int)e;
+  int most = 0;
+  e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(denoise_kernel<S, PAIRS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             most);
+  if (e == cudaSuccess && dev < 64) done[dev].store(true, std::memory_order_relaxed);
+  return (int)e;
+}
+
+template <int S, bool PAIRS>
+static int dn_launch(const DnArgs& a, int step, cudaStream_t stream) {
+  const DnTile<S> g(step);
+  const long smem = dn_smem_bytes(g.tnp(), g.rn(), PAIRS);
+  if (smem > 48 * 1024) {
+    const int e = dn_optin<S, PAIRS>(stream);
+    if (e) return e;
+  }
+  const dim3 grid((a.W + DN_BX - 1) / DN_BX, (a.H + DN_BY - 1) / DN_BY);
+  denoise_kernel<S, PAIRS><<<grid, DN_THREADS, (size_t)smem, stream>>>(a.rad, a.nrm, a.dep, a.out,
+                                                                        a.H, a.W, step);
+  return (int)cudaGetLastError();
 }
 
 // rad, nrm f32[H, W, 3], dep f32[H, W], out f32[H, W, 3]; stepwidth >= 0.
@@ -124,14 +110,10 @@ extern "C" int poca_denoise(const float* rad, const float* nrm, const float* dep
                             int H, int W, int step, cudaStream_t stream) {
   if (H <= 0 || W <= 0) return 0;
   if (step < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = denoise_smem(step);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        denoise_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 block(POCA_DN_BX, POCA_DN_BY);
-  const dim3 grid((W + POCA_DN_BX - 1) / POCA_DN_BX, (H + POCA_DN_BY - 1) / POCA_DN_BY);
-  denoise_kernel<<<grid, block, smem, stream>>>(rad, nrm, dep, out, H, W, step);
+  const DnArgs a = {rad, nrm, dep, out, H, W};
+  constexpr bool kPairs = true;
+  if (step == 1) return dn_launch<1, kPairs>(a, step, stream);
+  const dim3 grid((W + DN_BX - 1) / DN_BX, (H + 7) / 8);
+  denoise_kernel<<<grid, DN_BX * 8, 0, stream>>>(rad, nrm, dep, out, H, W, step);
   return (int)cudaGetLastError();
 }

@@ -59,7 +59,8 @@ def denoise(radiance, normal, depth, stepwidth: int = 1):
     f32[H,W,3].
 
     CUDA tensors launch ``csrc/denoise.cu`` (counted in
-    ``build.LAUNCHES["denoise"]``); CPU tensors take :func:`denoise_plain`.
+    ``build.LAUNCHES["denoise"]``) at any stepwidth; CPU tensors take
+    :func:`denoise_plain`.
     The kernel has no backward: on CUDA tensors, an input that requires
     grad under grad mode raises ValueError rather than return a result
     with no gradient (:func:`denoise_plain` differentiates on any device).

@@ -948,18 +948,69 @@ def test_video_harness_on_card(dev, tmp_path):
 # ---- the denoise kernel and the compiled serving calls
 
 
+# odd sizes, H or W under 5, the 32 x 16 tile exactly, one pixel under and over a multiple of
+# it in each direction
+DENOISE_SIZES = [(48, 64), (720, 1280), (29, 37), (3, 17), (1, 1), (4, 2), (16, 32), (15, 31),
+                 (17, 33), (31, 65), (33, 63)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("stepwidth", [1, 2])
-@pytest.mark.parametrize("h,w", [(48, 64), (720, 1280), (29, 37), (3, 17), (1, 1), (4, 2)])
+@pytest.mark.parametrize("stepwidth", [0, 1, 2, 3])
+@pytest.mark.parametrize("h,w", DENOISE_SIZES)
 def test_denoise_kernel_matches_plain_on_card(dev, h, w, stepwidth):
     """csrc/denoise.cu bitwise equal to its plain version on seeded inputs
-    (radiance in [0, 2), normals N(0, 1), depth in [0, 50)), one launch."""
+    (radiance in [0, 2), normals N(0, 1), depth in [0, 50)), one launch:
+    the tiled kernel of stepwidth 1 and the untiled one of the others (0,
+    2 and 3)."""
     from cpppathtracer_tpu_torch.ops.cuda.denoise_kernel import denoise, denoise_plain
 
     g = torch.Generator(device=dev).manual_seed(h * 1000 + w)
     rad = 2 * torch.rand((h, w, 3), device=dev, generator=g)
     nrm = torch.randn((h, w, 3), device=dev, generator=g)
     dep = 50 * torch.rand((h, w), device=dev, generator=g)
+    kb.reset_launches()
+    got = denoise(rad, nrm, dep, stepwidth)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["denoise"] == 1
+    ref = denoise_plain(rad, nrm, dep, stepwidth)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stepwidth", [0, 1, 2, 3])
+@pytest.mark.parametrize("h,w", [(720, 1280), (33, 63)])
+def test_denoise_kernel_inf_nan_on_card(dev, h, w, stepwidth):
+    """A radiance with inf and NaN (inside the image and at its edges):
+    the kernel's NaN exactly where the plain version's, every other value
+    bitwise."""
+    from cpppathtracer_tpu_torch.ops.cuda.denoise_kernel import denoise, denoise_plain
+
+    g = torch.Generator(device=dev).manual_seed(h + w)
+    rad = 2 * torch.rand((h, w, 3), device=dev, generator=g)
+    nrm = torch.randn((h, w, 3), device=dev, generator=g)
+    dep = 50 * torch.rand((h, w), device=dev, generator=g)
+    for y, x, c, v in ((h // 2, w // 3, 0, float("inf")), (0, w - 1, 1, float("nan")),
+                       (h - 1, 0, 2, -float("inf")), (h // 3, w // 2, 1, float("nan"))):
+        rad[y, x, c] = v
+    got, ref = denoise(rad, nrm, dep, stepwidth), denoise_plain(rad, nrm, dep, stepwidth)
+    nan = torch.isnan(ref)
+    assert nan.any() and torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32), ref[~nan].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stepwidth", [16, 17, 40, 300])
+def test_denoise_kernel_wide_stepwidth_on_card(dev, stepwidth):
+    """Wide stepwidths launch one kernel and match the plain version
+    bitwise (a staged tile and halo would outgrow shared memory past
+    some 15): the untiled kernel reads its taps from device memory, up to
+    300, where every tap but the centre lies outside the frame."""
+    from cpppathtracer_tpu_torch.ops.cuda.denoise_kernel import denoise, denoise_plain
+
+    g = torch.Generator(device=dev).manual_seed(stepwidth)
+    rad = 2 * torch.rand((40, 70, 3), device=dev, generator=g)
+    nrm = torch.randn((40, 70, 3), device=dev, generator=g)
+    dep = 50 * torch.rand((40, 70), device=dev, generator=g)
     kb.reset_launches()
     got = denoise(rad, nrm, dep, stepwidth)
     torch.cuda.synchronize()
