@@ -55,7 +55,16 @@ stepwidths 0-3; ``render_radiance_jit``'s CUDA graphs bitwise against
 renders; replays after in-place and value edits with no recapture; 16
 compiled progressive frames bitwise against ``frame_step``, the denoiser on
 and off; each replay's kernels in torch.profiler's records, no more of
-them than the wrappers counted at capture; ``[compiled]`` lines); and prints:
+them than the wrappers counted at capture; ``[compiled]`` lines), then
+phase 15: the compiled training steps (``bench.train_step_jit``'s CUDA
+graph of forward and backward against ``bench.train_step`` on the demo
+at 1024^2 x 64 spp x d8, the textured demo at 2 spp, big_scene(16384) at
+4 spp and route A at 256^2 x 1 spp x d4: losses bitwise, gradients within
+the eager step's own run-to-run difference, a replay's launches the eager
+step's and each kernel among torch.profiler's records; three steps of
+``inverse.make_train_step``'s graph, Adam included, against the eager
+step; the memory each graph holds and gives back; ``[train-compiled]``
+lines); and prints:
   - the card's name and power limit (nvidia-smi);
   - one JSON line {"kernels": [...]}: beside the keys every kernel has,
     only numbers this run measured, read from the built kernels or had the
@@ -1862,8 +1871,9 @@ def bench_phase(dev, card, scene, camera, sky, step_ref):
     to 1024^2 x 64 x 8 over the mean timed step that its stderr prints,
     within that print's rounding.  (b) In-process,
     ``bench.build_bench(1024, 1024, 64, 8, "cuda")``: its scene, camera and
-    sky bitwise equal to phase 5's, its step's launches those of the
-    training step, its loss bitwise equal to phase 5's ``loss_grads``
+    sky bitwise equal to phase 5's, its step (compiled on the card: the
+    first call captures it, and a replay is timed) launching those of
+    the training step, its loss bitwise equal to phase 5's ``loss_grads``
     (`step_ref`) and the kd and emission gradients within a relative L2
     error of 1e-4 (mega_bwd's float atomics add the table cotangents in
     another order on every run, so they are held as compare_bwd holds
@@ -1872,7 +1882,7 @@ def bench_phase(dev, card, scene, camera, sky, step_ref):
     ``scripts/torch_bench_bvh.py`` at 1024, 2048 and 4096 objects (256^2 x
     1 spp x d2): dense and bvh in every row, mega at 1024 and 2048, and
     null at 4096, past the megakernel's shared memory."""
-    from cpppathtracer_tpu_torch.bench import build_bench
+    from cpppathtracer_tpu_torch.bench import BENCH_GRAPHS, build_bench
     from cpppathtracer_tpu_torch.ops.cuda import build as kb
 
     repo = Path(__file__).resolve().parent
@@ -1903,6 +1913,7 @@ def bench_phase(dev, card, scene, camera, sky, step_ref):
     step, b_scene, b_camera, b_sky = build_bench(W, H, SPP, DEPTH, dev)
     same_inputs = (same_fields(b_scene, scene) and same_fields(b_camera, camera)
                    and torch.equal(bits(b_sky), bits(sky)))
+    first_ms, held = first_call_cost(step)  # the compiled step's warm-up, capture and replay
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kb.reset_launches()
@@ -1912,13 +1923,16 @@ def bench_phase(dev, card, scene, camera, sky, step_ref):
     dt = time.perf_counter() - t0
     launches = dict(kb.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    BENCH_GRAPHS.clear()
     want = dict(mega_trace=2 * SPP, mega_trace_aux=0, stream_compact=SPP, stream_expand=SPP,
                 mega_bwd=SPP, winner_index=0, bvh_winner_index=0, denoise=0)
     same_loss = torch.equal(bits(loss), bits(step_ref[0]))
     rel = {k: float((g - r).norm() / r.norm()) for (k, g), r in zip(grads.items(), step_ref[1:])}
     same_g = {k: torch.equal(bits(g), bits(r)) for (k, g), r in zip(grads.items(), step_ref[1:])}
-    log(f"[bench] build_bench step {W}x{H} x {SPP} spp x d{DEPTH} on {card}: {dt * 1e3:.1f} ms, "
-        f"{rays / dt / 1e6:.1f} Mrays/s fwd+bwd, peak {peak_gib:.2f} GiB, launches {launches}")
+    log(f"[bench] build_bench step {W}x{H} x {SPP} spp x d{DEPTH} on {card} (compiled, a "
+        f"replay): {dt * 1e3:.1f} ms, {rays / dt / 1e6:.1f} Mrays/s fwd+bwd, peak {peak_gib:.2f} "
+        f"GiB beside the graph's {held / 2**30:.2f} GiB held, first call {first_ms:.1f} ms, "
+        f"launches {launches}")
     log(f"[check] build_bench against phase 5's loss_grads: scene, camera and sky bitwise "
         f"{same_inputs}; loss bitwise {same_loss}; gradients bitwise {same_g}, relative L2 {rel}")
     if launches != want:
@@ -2429,6 +2443,182 @@ def compiled_phase(dev, card, scene, camera, sky, progressive_ms, lib_path):
                 graph_ms=graph_dn)
 
 
+def rel_l2(a, b):
+    """Relative L2 difference of a from b, in float64."""
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm() / b.norm()) if b.norm() > 0 else float((a - b).norm())
+
+
+def worst_rel(x, y):
+    """The largest relative L2 difference, tensor by tensor, between two
+    runs (dicts of tensors)."""
+    return max(rel_l2(x[k], y[k]) for k in x)
+
+
+def held_to_eager(got, runs):
+    """(d, bar, ok) for a compiled run `got` against repeated runs of the
+    same eager work (dicts of tensors): d, worst_rel from `got` to the
+    nearest eager run; bar, the eager runs' own run-to-run difference (the
+    largest worst_rel between two of them: mega_bwd's float atomics and
+    index_add_ sum in another order on every run); ok, d within twice
+    bar, or bitwise where the eager runs repeat bitwise.  Twice: the
+    compiled run is one more draw of the same summation orders, and the
+    spread of three draws does not always cover a fourth."""
+    d = min(worst_rel(got, r) for r in runs)
+    bar = max(worst_rel(x, y) for i, x in enumerate(runs) for y in runs[i + 1:])
+    if bar == 0.0:
+        return d, bar, all(torch.equal(bits(got[k]), bits(runs[0][k])) for k in got)
+    return d, bar, d <= 2 * bar
+
+
+def train_compiled_phase(dev, card, scene, camera, sky, step_want):
+    """Phase 15: the compiled training steps (CUDA graphs of the whole
+    forward, backward and, for inverse, Adam update).  For each training
+    route, bench.train_step_jit against the eager bench.train_step: the
+    demo step at 1024^2 x 64 spp x d8 (the bench size), the textured demo
+    at 1024^2 x 2 spp x d8, big_scene(16384) at 1024^2 x 4 spp x d8 (the
+    wavefront path and the BVH walk) and route A at 256^2 x 1 spp x d4
+    (POCA_MEGA=0 POCA_PLANAR=0).  Each: the first call's ms (warm-up,
+    capture and one replay) and the memory it left held; compiled and eager
+    steps in turns (compiled, eager, eager, compiled, eager), wall ms and
+    rays/s fwd+bwd; the loss of every run bitwise the first eager run's;
+    the gradients of both compiled runs within held_to_eager's bar of the
+    three eager runs; a replay's launches those of an eager step (on the
+    demo also `step_want`, phase 5's); device busy ms and share of both;
+    each kernel a replay counted among torch.profiler's records of a
+    replay.  Then inverse.make_train_step's compiled step (demo, 1024^2 x
+    4 spp x d4, kd and emission, fixed samples) for three steps against
+    three eager runs of three steps: the first loss bitwise, the
+    parameters and last loss after three steps within the bar, one
+    capture, a replay's launches those of an eager step, and
+    train_step.graphs.clear() giving back the memory its capture held.
+    Any failure raises."""
+    from cpppathtracer_tpu_torch import bench
+    from cpppathtracer_tpu_torch.bench import busy_ms
+    from cpppathtracer_tpu_torch.integrator import render_radiance
+    from cpppathtracer_tpu_torch.inverse import InverseConfig, make_train_step
+    from cpppathtracer_tpu_torch.models.camera import Camera
+    from cpppathtracer_tpu_torch.models.presets import big_camera, big_scene
+    from cpppathtracer_tpu_torch.ops.cuda import build as kb
+
+    tex_scene, tex = textured_scene(scene, dev)
+    routes = [
+        ("demo", scene, camera, SPP, DEPTH, None, {}, "mega_bwd_kernel"),
+        ("textured demo", tex_scene, camera, 2, DEPTH, tex, {}, "mega_bwd_kernel"),
+        (f"big_scene({BVH_N})", big_scene(BVH_N, device=dev), big_camera(BVH_N, W, H, device=dev),
+         WF_SPP, DEPTH, None, {}, "bvh_winner_kernel"),
+        ("route A", scene, Camera.make(256, 256, device=dev, **CAMERA), 1, 4, None,
+         dict(POCA_MEGA="0", POCA_PLANAR="0"), "winner_index_kernel"),
+    ]
+    for what, sc, cam, spp, depth, tx, switches, kernel in routes:
+        rays = cam.width * cam.height * spp * depth
+        with env(**switches):
+            bench.BENCH_GRAPHS.clear()
+            jit = lambda: bench.train_step_jit(sc, cam, sky, spp, depth, tx)
+            eager = lambda: bench.train_step(sc, cam, sky, spp, depth, tex_stack=tx)
+            eager()  # warm
+            captures = bench.BENCH_GRAPHS.captures
+            first_ms, held = first_call_cost(jit)
+            walls, outs, launches = {}, {}, {}
+            for name, fn in (("jit", jit), ("eager", eager), ("eager", eager), ("jit", jit),
+                             ("eager", eager)):
+                torch.cuda.synchronize()
+                kb.reset_launches()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                walls.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+                outs.setdefault(name, []).append(out)
+                launches.setdefault(name, []).append(dict(kb.LAUNCHES))
+            del out
+            loss0 = outs["eager"][0][0]
+            same_loss = all(torch.equal(bits(l), bits(loss0))
+                            for l, _ in outs["jit"] + outs["eager"])
+            eager_g = [g for _, g in outs["eager"]]
+            held_g = [held_to_eager(g, eager_g) for _, g in outs["jit"]]
+            same_launches = all(x == launches["eager"][0]
+                                for x in launches["jit"] + launches["eager"])
+            if what == "demo":
+                same_launches = same_launches and launches["jit"][0] == step_want
+            busy_jit, busy_eager = busy_ms(jit, dev), busy_ms(eager, dev)
+            kb.reset_launches()
+            seen = {k: n for k, (n, _) in profiled_kernels(jit, need=(kernel,)).items()}
+            counted = kernel_launches(kb.LAUNCHES)
+            new_captures = bench.BENCH_GRAPHS.captures - captures
+            bench.BENCH_GRAPHS.clear()
+        ms_jit, ms_eager = (sum(walls[k]) / len(walls[k]) for k in ("jit", "eager"))
+        log(f"[train-compiled] {what} {cam.width}x{cam.height} x {spp} spp x d{depth}: ms a step "
+            f"compiled {walls['jit']} eager {walls['eager']}; rays/s fwd+bwd compiled "
+            f"{rays / ms_jit * 1e3:.4g}, eager {rays / ms_eager * 1e3:.4g}; device busy compiled "
+            f"{busy_jit:.3f} ms ({busy_jit / ms_jit:.3f} of the mean step), eager "
+            f"{busy_eager:.3f} ms ({busy_eager / ms_eager:.3f}); first call {first_ms:.1f} ms, "
+            f"{held / 2**30:.3f} GiB held after it; {card}")
+        log(f"[train-compiled] {what}: losses bitwise {same_loss} ({float(loss0):.8g}); gradients "
+            f"of the two compiled runs, relative L2 from the nearest of three eager runs "
+            f"{[d for d, _, _ in held_g]}, the eager runs' own spread {held_g[0][1]:.3e}: within "
+            f"twice it {[ok for _, _, ok in held_g]}; launches of a replay {launches['jit'][0]}, "
+            f"of an eager step {launches['eager'][0]}: equal {same_launches}; kernels of a replay, "
+            f"counted {counted}, records torch.profiler kept {seen}; captures {new_captures}")
+        if not (same_loss and all(ok for _, _, ok in held_g) and same_launches and new_captures == 1
+                and seen_within(seen, counted)):
+            raise AssertionError(f"the compiled training step on {what} differs from the eager one")
+        del outs
+
+    # inverse.make_train_step: three compiled steps against three eager runs of three steps
+    cfg = InverseConfig(fields=("kd", "emission"), fixed_samples=True)
+    gen_kd = torch.Generator(device=dev).manual_seed(1)
+    kd_true = (scene.kd + 0.2 * torch.rand(scene.kd.shape, device=dev, generator=gen_kd)
+               - 0.1).clamp(0, 1)
+    with torch.no_grad():
+        target, _, _ = render_radiance(scene.with_material_params({"kd": kd_true}), camera, sky,
+                                       spp=cfg.spp, max_depth=cfg.max_depth, seed=cfg.seed)
+    finals, firsts, step_ms, step_launches = [], [], {}, {}
+    for eager_form in (False, True, True, True):
+        init, train_step = make_train_step(camera, cfg, eager=eager_form)
+        params, opt = init(scene, sky)
+        name = "eager" if eager_form else "compiled"
+        losses = []
+        for k in range(3):
+            run = lambda: losses.append(train_step(params, opt, scene, sky, target, k)[2])
+            if k == 0 and not eager_form:
+                first_ms, held = first_call_cost(run)  # warm-up, capture, the first replay
+                continue
+            torch.cuda.synchronize()
+            kb.reset_launches()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            step_ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+            step_launches.setdefault(name, []).append(dict(kb.LAUNCHES))
+        firsts.append(losses[0])
+        finals.append(dict(params, loss=losses[2]))
+        if not eager_form:
+            inv_captures = train_step.graphs.captures
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            mem0 = torch.cuda.memory_reserved()
+            train_step.graphs.clear()
+            torch.cuda.empty_cache()
+            freed = mem0 - torch.cuda.memory_reserved()
+    same_first = all(torch.equal(bits(f), bits(firsts[0])) for f in firsts)
+    d, bar, ok = held_to_eager(finals[0], finals[1:])
+    same_launches = all(x == step_launches["eager"][0]
+                        for x in step_launches["compiled"] + step_launches["eager"])
+    log(f"[train-compiled] inverse.make_train_step demo {W}x{H} x {cfg.spp} spp x "
+        f"d{cfg.max_depth} (kd, emission; fixed samples): first loss bitwise {same_first} "
+        f"({float(firsts[0]):.8g}); after 3 steps parameters and loss relative L2 from the nearest "
+        f"of three eager runs {d:.3e}, the eager runs' own spread {bar:.3e}, within twice it "
+        f"{ok} (losses compiled {float(finals[0]['loss']):.8g}, eager "
+        f"{[float(f['loss']) for f in finals[1:]]}); "
+        f"ms a step compiled {step_ms['compiled']} eager {step_ms['eager']}; first call "
+        f"{first_ms:.1f} ms, {held / 2**30:.3f} GiB held, {freed / 2**30:.3f} GiB given back by "
+        f"graphs.clear(); captures {inv_captures}; launches equal {same_launches} "
+        f"({step_launches['compiled'][0]}); {card}")
+    if not (same_first and ok and same_launches and inv_captures == 1 and freed >= held):
+        raise AssertionError("inverse.make_train_step's compiled step differs from the eager one, "
+                             "recaptured, or kept its memory after graphs.clear()")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -2808,6 +2998,8 @@ def main():
     harness_phase(card, progressive_ms)
     # ---- phase 14: the compiled serving calls (CUDA graphs) and the denoise kernel
     kernels.append(compiled_phase(dev, card, scene, camera, sky, progressive_ms, lib_path))
+    # ---- phase 15: the compiled training steps (CUDA graphs of forward, backward and Adam)
+    train_compiled_phase(dev, card, scene, camera, sky, want)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

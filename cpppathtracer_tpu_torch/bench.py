@@ -11,7 +11,10 @@ The metric is differentiable-render throughput (forward + material-
 parameter backward) on ``demo_scene(0)`` at 1024x1024 x 64 spp x depth 8,
 rays counted as W x H x spp x depth, as ``bench.py:83-84`` counts them.
 With ``--device cpu`` it runs the smoke size 64x64 x 2 spp x depth 4
-(the JAX bench's CPU size).  Progress lines go to stderr.
+(the JAX bench's CPU size).  On the card the step is compiled, one CUDA
+graph (:func:`train_step_jit`), as ``bench.py`` jits its step; the first
+call, which builds the kernels and captures the graph, is reported apart
+from the timed steps.  Progress lines go to stderr.
 
 Unlike ``bench.py`` there is no ``vs_baseline``: its denominator,
 ``BASELINE_RAYS_PER_SEC = 1e9``, is a target set for a TPU v5p-16, and
@@ -32,6 +35,14 @@ import time
 import torch
 
 from cpppathtracer_tpu_torch.types import resolve_device
+from cpppathtracer_tpu_torch.utils.graphs import (
+    Entry,
+    GraphedCall,
+    copy_into,
+    env_switches,
+    signature,
+    static_twin,
+)
 
 CAMERA = dict(origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0))
 
@@ -55,11 +66,67 @@ def train_step(scene, camera, sky, spp, max_depth, tex_stack=None):
     return loss.detach(), dict(zip(leaves, grads))
 
 
+# The CUDA graphs of train_step_jit, as jax.jit caches its programs: a few
+# keys, least recently used first out; BENCH_GRAPHS.clear() frees them.
+BENCH_GRAPHS = GraphedCall(max_entries=2)
+
+
+def train_step_jit(scene, camera, sky, spp, max_depth, tex_stack=None):
+    """:func:`train_step` compiled, the counterpart of ``bench.py:53``'s
+    ``jax.jit(jax.value_and_grad(loss_fn))``: same arguments, same
+    (loss, grads).
+
+    On the card, one CUDA graph of the whole step (ray generation, every
+    sample's forward and backward, the gradients as outputs of
+    ``torch.autograd.grad``) is captured once per key of
+    :data:`BENCH_GRAPHS` (every input's shape and dtype, spp, max_depth
+    and the POCA_* switches) and replayed; the scene, camera, sky and
+    textures are copied into its buffers first, and the results returned
+    are copies of its outputs.  Its memory holds the step's whole tape, as
+    JAX's program holds every sample's residuals.  A capture that fails
+    raises.  On the CPU it is :func:`train_step`."""
+    if scene.device.type == "cpu":
+        return train_step(scene, camera, sky, spp, max_depth, tex_stack=tex_stack)
+    return train_step_graphed(BENCH_GRAPHS, scene, camera, sky, spp, max_depth, tex_stack)
+
+
+def bench_key(scene, camera, sky, spp, max_depth, tex_stack=None):
+    """The cache key of :func:`train_step_jit`'s graphs for these arguments."""
+    return ("bench", signature((scene, camera, sky, tex_stack)), spp, max_depth, env_switches())
+
+
+def train_step_graphed(runner: GraphedCall, scene, camera, sky, spp, max_depth, tex_stack=None):
+    """:func:`train_step_jit`'s body on the graphs of `runner` (its capture
+    backend decides what a capture is)."""
+    inputs = (scene, camera, sky, tex_stack)
+    key = bench_key(scene, camera, sky, spp, max_depth, tex_stack)
+    e = runner.entry(key, lambda r: _capture_bench(r, inputs, spp, max_depth))
+    copy_into(e.inputs, inputs)
+    e.graphs[0].replay()
+    loss, grads = e.out
+    return loss.clone(), {k: g.clone() for k, g in grads.items()}
+
+
+def _capture_bench(runner, inputs, spp, max_depth):
+    """The entry of one bench key: static scene, camera, sky and textures,
+    and the graph of :func:`train_step` on them."""
+    e = Entry()
+    e.inputs = static_twin(inputs)
+    scene, camera, sky, tex_stack = e.inputs
+
+    def body():
+        e.out = train_step(scene, camera, sky, spp, max_depth, tex_stack=tex_stack)
+
+    e.graphs = runner.capture(body, device=scene.device)
+    return e
+
+
 def build_bench(width, height, spp, max_depth, device=None):
     """What ``bench.py:31-54`` builds: ``demo_scene(0)`` (93 objects), the
     bench camera at (130, 103, 130), a 256x256 procedural sky, all on
     `device` (default the card), and the step.  Returns (step, scene,
-    camera, sky); ``step()`` runs :func:`train_step` on them."""
+    camera, sky); ``step()`` runs :func:`train_step_jit` on them (on the
+    card the compiled step, as ``bench.py`` jits its step)."""
     from cpppathtracer_tpu_torch.models.camera import Camera
     from cpppathtracer_tpu_torch.models.scene import demo_scene
     from cpppathtracer_tpu_torch.ops.texture import procedural_sky
@@ -68,7 +135,7 @@ def build_bench(width, height, spp, max_depth, device=None):
     scene = demo_scene(seed=0).build(device=dev)
     camera = Camera.make(width, height, device=dev, **CAMERA)
     sky = torch.from_numpy(procedural_sky(256, 256)).to(dev)
-    step = functools.partial(train_step, scene, camera, sky, spp, max_depth)
+    step = functools.partial(train_step_jit, scene, camera, sky, spp, max_depth)
     return step, scene, camera, sky
 
 
@@ -142,7 +209,12 @@ def main(argv=None):
     sync = functools.partial(torch.cuda.synchronize, dev) if on_card else (lambda: None)
 
     step, _, _, _ = build_bench(width, height, spp, max_depth, dev)
-    # warm-up; the first call on the card also builds the kernels (nvcc)
+    if on_card:
+        # from here, so that the peak covers the capture: the graph holds the step's tape,
+        # and its replays allocate nothing
+        torch.cuda.reset_peak_memory_stats(dev)
+    # warm-up; the first call on the card also builds the kernels (nvcc) and captures
+    # the step's graph
     t0 = time.perf_counter()
     step()
     sync()
@@ -150,8 +222,6 @@ def main(argv=None):
     print(f"[bench] device={dev} ({label}) first={first_s:.1f}s", file=sys.stderr)
 
     iters = 3 if on_card else 1
-    if on_card:
-        torch.cuda.reset_peak_memory_stats(dev)
     times = []
     for _ in range(iters):
         sync()

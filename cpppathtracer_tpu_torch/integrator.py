@@ -461,7 +461,9 @@ def render_radiance(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: i
     require grad, on every path (the backward of each sample is
     ``ops/mega.py::MegaSample``, :class:`WavefrontSample` or autograd of
     the row-major body).  This is the eager form, one PyTorch operation at
-    a time; serving calls :func:`render_radiance_jit`, its CUDA graph.
+    a time; serving calls :func:`render_radiance_jit`, its CUDA graph, and
+    the compiled training steps (``inverse.make_train_step``,
+    ``bench.train_step_jit``) capture it whole, backward included.
     """
     _check_devices(scene, camera, sky_tex, tex_stack)
     if pixel_idx is None:
@@ -496,9 +498,10 @@ def render_radiance_jit(scene, camera, sky_tex, *, spp: int, max_depth: int, see
     textures or pixel indices, another sample_offset) are copied into the
     graph's buffers and replay it.  The outputs are the caller's own
     tensors (copies of the graph's buffers).  Inputs that require grad
-    under grad mode raise ValueError: this is the serving call (the
-    compiled training step is a later slice).  A capture that fails
-    raises; nothing runs eagerly in its place.
+    under grad mode raise ValueError: this is the serving call (a
+    compiled training step is ``inverse.make_train_step``'s, or
+    ``bench.train_step_jit``).  A capture that fails raises; nothing runs
+    eagerly in its place.
 
     On the CPU it is :func:`render_radiance`.
     """
@@ -529,9 +532,9 @@ def render_graphed(runner: GraphedCall, scene, camera, sky_tex, *, spp: int, max
     inputs = (scene, camera, sky_tex, tex_stack, pixel_idx)
     if torch.is_grad_enabled() and requires_grad(*inputs):
         raise ValueError(
-            "render_radiance_jit serves frames and takes no inputs that require grad (the "
-            "compiled training step is a later slice): call render_radiance, or wrap the call "
-            "in torch.no_grad()"
+            "render_radiance_jit serves frames and takes no inputs that require grad: train "
+            "through inverse.make_train_step or bench.train_step_jit (compiled on the card), or "
+            "call render_radiance, or wrap the call in torch.no_grad()"
         )
     chunk = _spp_chunk(spp, spp_chunk)
     key = render_key(scene, camera, sky_tex, spp=spp, max_depth=max_depth, seed=seed,

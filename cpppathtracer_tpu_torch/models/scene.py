@@ -168,7 +168,15 @@ class Scene:
         }
 
     def with_material_params(self, params) -> "Scene":
-        return dataclasses.replace(self, **params)
+        """The scene with these material fields.  The object order is
+        unchanged, so the new scene shares this one's `type_perm_index`
+        (made here once, outside any step): a training step calls this
+        on every run, inside a CUDA graph too, where no host-to-device
+        copy may run."""
+        out = dataclasses.replace(self, **params)
+        if self.type_perm:
+            out.__dict__["type_perm_index"] = self.type_perm_index
+        return out
 
 
 @dataclasses.dataclass

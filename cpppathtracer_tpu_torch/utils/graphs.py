@@ -1,9 +1,11 @@
-"""CUDA graphs of the serving calls: the port's counterpart of ``jax.jit``.
+"""CUDA graphs of the compiled calls: the port's counterpart of ``jax.jit``.
 
 The JAX package compiles each call a user makes (``integrator.py:515-517``
-``render_radiance_jit``, ``renderer.py:98-108`` ``frame_step``) into one
-XLA program.  Eager PyTorch issues the same work one operation at a time,
-and on the card the host then sets the pace.  A :class:`GraphedCall`
+``render_radiance_jit``, ``renderer.py:98-108`` ``frame_step``,
+``inverse.py:75-80`` ``train_step``, ``bench.py:53``'s
+``jax.jit(jax.value_and_grad(loss_fn))``) into one XLA program.  Eager
+PyTorch issues the same work one operation at a time, and on the card the
+host then sets the pace.  A :class:`GraphedCall`
 captures a call's bodies once with ``torch.cuda.graph`` and replays them.
 
 Its design:
@@ -26,7 +28,14 @@ Its design:
   every replay.
 - A capture that fails raises.  Nothing falls back to the eager bodies:
   a caller that wants eager work calls the eager function
-  (``integrator.render_radiance``, ``renderer.frame_step``).
+  (``integrator.render_radiance``, ``renderer.frame_step``,
+  ``inverse.make_train_step(..., eager=True)``, ``bench.train_step``).
+- A body may change state, as the training step's does (an Adam update,
+  ``inverse.py``): its parameters and optimizer state are static buffers
+  too, the caller's values copied in before each replay and the updated
+  values copied back into the caller's tensors after it.  Warm-up and
+  capture run the body on the buffers alone, so they change nothing the
+  caller holds: the first replay takes the first step.
 
 The capture itself is a backend (:class:`CudaGraphs` on the card), so the
 bookkeeping can be tested on the CPU with a stand-in that runs the body.
@@ -54,6 +63,8 @@ def signature(obj):
             (f.name, signature(getattr(obj, f.name))) for f in dataclasses.fields(obj))
     if isinstance(obj, (tuple, list)):
         return tuple(signature(x) for x in obj)
+    if isinstance(obj, dict):
+        return tuple((k, signature(v)) for k, v in obj.items())
     return obj
 
 
@@ -65,6 +76,8 @@ def _map_tensors(obj, fn):
                                            for f in dataclasses.fields(obj) if f.init})
     if isinstance(obj, tuple):
         return tuple(_map_tensors(x, fn) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _map_tensors(v, fn) for k, v in obj.items()}
     return obj
 
 
@@ -76,6 +89,9 @@ def _tensors(obj):
             yield from _tensors(getattr(obj, f.name))
     elif isinstance(obj, tuple):
         for x in obj:
+            yield from _tensors(x)
+    elif isinstance(obj, dict):
+        for x in obj.values():
             yield from _tensors(x)
 
 
@@ -177,7 +193,11 @@ class Graph:
             kb.LAUNCHES[k] += n
 
     def release(self):
+        """Free the graph.  Its body goes too, which breaks the cycle of an
+        entry whose bodies close over it, so the entry's buffers are freed
+        as soon as the cache drops it."""
         self._graph.reset()
+        self._graph = self._body = None
 
 
 class Entry:

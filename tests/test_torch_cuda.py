@@ -417,7 +417,8 @@ def test_mega_sample_grads_kernel_vs_plain_on_card(dev, monkeypatch):
 def test_bench_step_matches_loss_grads_on_card(dev):
     """bench.build_bench at 256^2 x 2 spp x d4 against chip_smoke.loss_grads
     on inputs built apart: scene, camera and sky bitwise, the step's
-    launches, the loss bitwise; the kd and emission gradients within a
+    launches (its first call's warm-up and replay, then a replay's), the
+    loss bitwise; the kd and emission gradients within a
     relative L2 error of 1e-4, since mega_bwd's float atomics add the table
     cotangents in another order on every run (csrc/mega_bwd.cu)."""
     import chip_smoke
@@ -430,11 +431,16 @@ def test_bench_step_matches_loss_grads_on_card(dev):
     sky0 = torch.from_numpy(procedural_sky(256, 256)).to(dev)
     assert chip_smoke.same_fields(scene, s0) and chip_smoke.same_fields(camera, cam)
     assert torch.equal(sky, sky0)
+    want = dict(mega_trace=4, mega_trace_aux=0, stream_compact=2, stream_expand=2, mega_bwd=2,
+                winner_index=0, bvh_winner_index=0, denoise=0)
+    kb.reset_launches()
+    step()  # the compiled step's first call: its warm-up runs eagerly, then a replay
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES == {k: 2 * n for k, n in want.items()}
     kb.reset_launches()
     loss, grads = step()
     torch.cuda.synchronize()
-    assert kb.LAUNCHES == dict(mega_trace=4, mega_trace_aux=0, stream_compact=2, stream_expand=2,
-                               mega_bwd=2, winner_index=0, bvh_winner_index=0, denoise=0)
+    assert kb.LAUNCHES == want
     ref = chip_smoke.loss_grads(s0, cam, sky0, 2, 4)
     assert torch.equal(loss, ref[0])
     for g, r in zip(grads.values(), ref[1:]):
@@ -1202,3 +1208,136 @@ def test_serving_calls_off_the_current_device_on_card(dev):
         torch.cuda.synchronize(dev1)
         assert img.device == dev1 and torch.equal(img.view(torch.int32), ref.view(torch.int32))
     assert r.graphs.captures == 1 and torch.cuda.current_device() == 0
+
+
+def _rel(a, b):
+    """Relative L2 difference of a from b, in float64."""
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm() / b.norm()) if b.norm() > 0 else float((a - b).norm())
+
+
+def _worst(x, y):
+    return max(_rel(x[k], y[k]) for k in x)
+
+
+def _held_to_eager(got, runs):
+    """Whether `got` (a dict of tensors) lies within twice the eager runs'
+    own run-to-run difference (the largest difference between two of them;
+    mega_bwd's float atomics and index_add_ sum in another order on each
+    run) of the nearest eager run, or is bitwise theirs where they repeat
+    bitwise."""
+    bar = max(_worst(x, y) for i, x in enumerate(runs) for y in runs[i + 1:])
+    if bar == 0.0:
+        return all(torch.equal(got[k].view(torch.int32), runs[0][k].view(torch.int32))
+                   for k in got)
+    return min(_worst(got, r) for r in runs) <= 2 * bar
+
+
+def _target_of(scene, cam, sky):
+    from cpppathtracer_tpu_torch.integrator import render_radiance
+
+    g = torch.Generator(device=scene.device).manual_seed(1)
+    kd = (scene.kd + 0.2 * torch.rand(scene.kd.shape, device=scene.device, generator=g)
+          - 0.1).clamp(0, 1)
+    with torch.no_grad():
+        return render_radiance(scene.with_material_params({"kd": kd}), cam, sky, spp=2,
+                               max_depth=8, seed=0)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["demo", "bvh"])
+def test_compiled_train_steps_on_card(dev, which):
+    """At 128^2 x 2 spp x d8 on the megakernel (demo_scene(0)) and on the
+    wavefront path (big_scene(4096), BVH walk): (1) bench.train_step_jit
+    against bench.train_step: the loss bit for bit, the replay's launches
+    the eager step's, the gradients held to three eager runs by
+    _held_to_eager; (2) three steps of inverse.make_train_step's
+    compiled step (fresh samples, kd and emission) against three of the
+    eager step, run three times: the first loss bit for bit, the parameters
+    and losses after three steps held the same way, one capture, and a
+    replay's launches the eager step's."""
+    from cpppathtracer_tpu_torch import bench
+    from cpppathtracer_tpu_torch.inverse import InverseConfig, make_train_step
+
+    scene, cam, sky = _serving_scene(dev, which, size=128)
+    bench.BENCH_GRAPHS.clear()
+    captures = bench.BENCH_GRAPHS.captures
+    got = bench.train_step_jit(scene, cam, sky, 2, 8)  # warm-up, capture, one replay
+    kb.reset_launches()
+    loss, grads = bench.train_step_jit(scene, cam, sky, 2, 8)
+    torch.cuda.synchronize()
+    replayed = dict(kb.LAUNCHES)
+    runs = []
+    for _ in range(3):
+        kb.reset_launches()
+        ref_loss, ref = bench.train_step(scene, cam, sky, 2, 8)
+        torch.cuda.synchronize()
+        runs.append(ref)
+    assert replayed == kb.LAUNCHES and sum(replayed.values()) > 0
+    assert torch.equal(loss.view(torch.int32), ref_loss.view(torch.int32))
+    assert torch.equal(got[0].view(torch.int32), loss.view(torch.int32))
+    assert _held_to_eager(grads, runs), [{k: _rel(grads[k], r[k]) for k in grads} for r in runs]
+    assert bench.BENCH_GRAPHS.captures - captures == 1
+    bench.BENCH_GRAPHS.clear()
+
+    target = _target_of(scene, cam, sky)
+    cfg = InverseConfig(spp=2, max_depth=8, fields=("kd", "emission"))
+    finals, first = [], []
+    for eager in (False, True, True, True):
+        init, step = make_train_step(cam, cfg, eager=eager)
+        params, opt = init(scene, sky)
+        losses = []
+        for k in range(3):
+            kb.reset_launches()
+            params, opt, l = step(params, opt, scene, sky, target, k)
+            torch.cuda.synchronize()
+            losses.append(l)
+            if k == 2:
+                launches = dict(kb.LAUNCHES)
+        first.append(losses[0])
+        finals.append(dict(params, loss=losses[2]))
+        if eager:
+            assert launches == compiled_launches
+        else:
+            compiled_launches = launches
+            assert step.graphs.captures == 1
+            step.graphs.clear()
+    assert all(torch.equal(first[0].view(torch.int32), f.view(torch.int32)) for f in first)
+    assert _held_to_eager(finals[0], finals[1:]), [
+        {k: _rel(finals[0][k], f[k]) for k in f} for f in finals[1:]]
+
+
+@pytest.mark.gpu
+def test_train_graphs_clear_frees_their_memory_on_card(dev):
+    """The compiled bench step at 128^2 x 4 spp x d8 holds its graph's
+    private memory pool and buffers between calls; BENCH_GRAPHS.clear()
+    gives back every byte allocated for it and every segment of its pool
+    (once the allocator's free cache is released).  The allocator's own
+    pool is not counted: after a failed capture earlier in the process
+    (test_failed_capture_raises_and_runs_nothing_eagerly_on_card),
+    empty_cache was seen to keep the warm-up's free 2 MiB segments."""
+    import gc
+
+    from cpppathtracer_tpu_torch import bench
+
+    def pooled():
+        """Bytes of the segments that belong to a CUDA graph's pool."""
+        return sum(x["total_size"] for x in torch.cuda.memory_snapshot()
+                   if tuple(x["segment_pool_id"]) != (0, 0))
+
+    scene, cam, sky = _serving_scene(dev, "demo", size=128)
+    bench.BENCH_GRAPHS.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = pooled(), torch.cuda.memory_allocated(dev)
+    bench.train_step_jit(scene, cam, sky, 4, 8)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = pooled() - before[0], torch.cuda.memory_allocated(dev) - before[1]
+    bench.BENCH_GRAPHS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after = pooled() - before[0], torch.cuda.memory_allocated(dev) - before[1]
+    assert held[0] > 16 * 2**20 and held[1] > 0, held
+    assert after == (0, 0), (held, after)

@@ -32,49 +32,16 @@ from cpppathtracer_tpu_torch.renderer import (
 )
 from cpppathtracer_tpu_torch.utils.graphs import GraphedCall
 
-from torch_port_helpers import controlled_scene, port_camera, port_scene, port_sky
+from torch_port_helpers import (
+    RunBody,
+    Replay,
+    controlled_scene,
+    port_camera,
+    port_scene,
+    port_sky,
+)
 
 torch.set_num_threads(1)
-
-
-class RunBody:
-    """Stand-in for ``graphs.CudaGraphs``: a capture runs the body once (as
-    ``torch.cuda.graph`` runs it while recording) and its replay runs it
-    again with ``build.LAUNCHES`` put back afterwards, since a replay runs
-    no Python.  It counts what it was asked to do."""
-
-    def __init__(self):
-        self.warmups = self.captured = self.replays = self.released = 0
-        self.devices = set()
-
-    def pool(self):
-        return None
-
-    def warmup(self, bodies, device):
-        for body in bodies:
-            body()
-        self.warmups += len(bodies)
-        self.devices.add(device)
-
-    def capture(self, body, pool, device):
-        body()
-        self.captured += 1
-        self.devices.add(device)
-        return _Replay(self, body)
-
-
-class _Replay:
-    def __init__(self, backend, body):
-        self.backend, self.body = backend, body
-
-    def replay(self):
-        saved = dict(kb.LAUNCHES)
-        self.body()
-        kb.LAUNCHES.update(saved)
-        self.backend.replays += 1
-
-    def reset(self):
-        self.backend.released += 1
 
 
 def _demo(w=16, h=12):
@@ -306,7 +273,7 @@ class ForgetsBody(RunBody):
     def capture(self, body, pool, device):
         body()
         self.captured += 1
-        return _Replay(self, lambda: None)
+        return Replay(self, lambda: None)
 
 
 def test_graph_keeps_the_buffers_its_body_reads():
