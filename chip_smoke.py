@@ -64,7 +64,17 @@ the eager step's own run-to-run difference, a replay's launches the eager
 step's and each kernel among torch.profiler's records; three steps of
 ``inverse.make_train_step``'s graph, Adam included, against the eager
 step; the memory each graph holds and gives back; ``[train-compiled]``
-lines); and prints:
+lines), then phase 16: the seed as a device word (``mega_trace`` in both
+forms and ``mega_bwd`` in both instances at seeds 0, 1, 2^31 + 5 and -3,
+the word against the int and the plain version; phase 6's times beside
+PR 15's), one captured render and one progressive frame graph over seeds,
+the compiled video (24 orbit frames of 1024^2 x 16 spp x d8 through
+``video.render_video``, PNG bytes equal to the eager loop's, and 4 frames
+over a virtual 2x2 mesh), the compiled tiles (``render_image_sharded`` at
+1024^2 x 4 spp x d8 tiled 1x1 and 2x2, bitwise the eager tiles, one
+capture per device and tile shape) and ``inverse.fit`` with JAX's
+``optimizer=`` and ``callback=`` keywords (``[seed]``, ``[video16]``,
+``[tiles16]``, ``[api]`` lines); and prints:
   - the card's name and power limit (nvidia-smi);
   - one JSON line {"kernels": [...]}: beside the keys every kernel has,
     only numbers this run measured, read from the built kernels or had the
@@ -1549,7 +1559,8 @@ def entry_points_phase(dev, card, tmp):
     if torch.cuda.device_count() == 1:
         meshes.append(("virtual 2x2 on one card", make_tile_mesh([dev] * 4)))
     for what, mesh in meshes:
-        render_image_sharded(scene, cam, sky, mesh, spp=1, max_depth=DEPTH, seed=0)  # warm-up
+        # warm-up: on the card the first call captures the mesh's tile graphs
+        render_image_sharded(scene, cam, sky, mesh, spp=TILE_SPP, max_depth=DEPTH, seed=0)
         kb.reset_launches()
         tiled, ms_tiled = timed(lambda: render_image_sharded(scene, cam, sky, mesh, spp=TILE_SPP,
                                                              max_depth=DEPTH, seed=0))
@@ -2591,7 +2602,7 @@ def train_compiled_phase(dev, card, scene, camera, sky, step_want):
             step_ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
             step_launches.setdefault(name, []).append(dict(kb.LAUNCHES))
         firsts.append(losses[0])
-        finals.append(dict(params, loss=losses[2]))
+        finals.append(dict(params["mat"], loss=losses[2]))
         if not eager_form:
             inv_captures = train_step.graphs.captures
             torch.cuda.synchronize()
@@ -2617,6 +2628,279 @@ def train_compiled_phase(dev, card, scene, camera, sky, step_want):
     if not (same_first and ok and same_launches and inv_captures == 1 and freed >= held):
         raise AssertionError("inverse.make_train_step's compiled step differs from the eager one, "
                              "recaptured, or kept its memory after graphs.clear()")
+
+
+# Phase 6's times of #1 (a sample's phase A + B) and #8 (a sample) in PR 15's runs of this
+# script, calls (c) and (f) (PERF.md), for phase 16 (a) to print beside this run's
+PR15_MEGA_MS, PR15_BWD_MS = (0.915, 0.900), (1.729, 1.749)
+SEED_WORDS = (0, 1, 2**31 + 5, -3)  # the seeds of phase 16 (a)
+VIDEO_FRAMES, VIDEO_SPP = 24, 16  # scripts/torch_bench_video.py's defaults (phase 16 (c))
+MESH_FRAMES = 4  # the frames of phase 16 (c)'s 2x2 mesh video
+
+
+def flat_outputs(out):
+    """The tensors of a kernel's nested outputs, in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for x in out if x is not None for t in flat_outputs(x)]
+
+
+def all_bits_equal(a, b):
+    """Nested outputs of 32-bit tensors bitwise equal."""
+    return same_bits(flat_outputs(a), flat_outputs(b))
+
+
+def seed_graphs_phase(dev, card, scene, camera, sky, trace_args, gs, bwd_args, phase6_ms):
+    """Phase 16: the seed as a device word, and the graphs it lets one
+    capture serve.  (a) mega_trace (both forms) and mega_bwd (both
+    instances) on the main path's shapes (1024^2 primaries, depth 8) at
+    seeds 0, 1, 2^31 + 5 and -3, with the seed as an int and as a device
+    word: the trace bitwise its plain version and the kernel given the int;
+    the backward's per-ray cotangents and carry bitwise the kernel given
+    the int, the table cotangents within compare_bwd's bounds (its float
+    atomics add in another order each run), against its plain version
+    under compare_bwd's bounds; phase 6's times beside PR 15's.  (b)
+    render_radiance_jit at 1024^2 x 4 spp x d8 over seeds 0, 1, 2: one
+    capture, each bitwise the eager render; ProgressiveRenderer.step over
+    two configs that differ only in seed: one frame graph, bitwise
+    frame_step.  (c) the video: the demo orbit, 24 frames of 1024^2 x 16
+    spp x d8, compiled (video.render_video) and eager (write_frames with no
+    runner), every PNG byte-equal, one capture; frames/s with and without
+    the sink, ms a frame, busy share, the first call and the graph's
+    memory; then 4 frames over a virtual 2x2 mesh, byte-equal to the eager
+    mesh video.  (d) render_image_sharded at 1024^2 x 4 spp x d8 tiled 1x1
+    and 2x2: bitwise the eager tiles, one capture per (device, tile
+    shape), none for a second frame at another seed and camera; ms a frame
+    both ways.  (e) inverse.fit with optimizer=sgd and a callback that
+    reads params["mat"]["kd"], against make_train_step(eager=True): the
+    first loss bitwise, the later ones held to three eager runs as phase
+    15 holds them.  Every check raises."""
+    from cpppathtracer_tpu_torch import inverse, video
+    from cpppathtracer_tpu_torch.bench import busy_ms
+    from cpppathtracer_tpu_torch.integrator import (
+        RENDER_GRAPHS, render_radiance, render_radiance_jit,
+    )
+    from cpppathtracer_tpu_torch.models.camera import Camera
+    from cpppathtracer_tpu_torch.ops.cuda import build as kb
+    from cpppathtracer_tpu_torch.ops.cuda.mega_bwd_kernel import mega_bwd, mega_bwd_plain
+    from cpppathtracer_tpu_torch.ops.cuda.mega_kernel import mega_trace, mega_trace_plain
+    from cpppathtracer_tpu_torch.parallel.mesh import make_tile_mesh
+    from cpppathtracer_tpu_torch.parallel.render import (
+        render_image_sharded, render_tiles, tile_graphs,
+    )
+    from cpppathtracer_tpu_torch.renderer import (
+        AccumulatorState, ProgressiveRenderer, RenderConfig, frame_step,
+    )
+    from cpppathtracer_tpu_torch.utils.graphs import GraphedCall
+    from cpppathtracer_tpu_torch.utils.rng import seed_word
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    # (a) the seed word in #1 and #8
+    o, d, pix, samp, _, ts, trt, _, cts = bwd_args
+    r = pix.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    noise = torch.randn((4 * DEPTH, r), device=dev, generator=gen)
+    for seed in SEED_WORDS:
+        word = seed_word(seed, dev)
+        at = lambda s: (trace_args[:4] + (s,) + trace_args[5:])
+        for aux in (False, True):
+            kw = dict(counts=gs.counts, depth=DEPTH, with_aux=aux)
+            by_int = mega_trace(*at(seed), **kw)
+            by_word = mega_trace(*at(word), **kw)
+            plain = mega_trace_plain(*at(word), **kw)
+            same_int, same_plain = all_bits_equal(by_int, by_word), all_bits_equal(by_word, plain)
+            log(f"[seed] mega_trace{'(with_aux)' if aux else ''} seed {seed} (word "
+                f"{int(word[0])}), {W}x{H} primaries x d{DEPTH}: the device word bitwise the int "
+                f"{same_int}, bitwise the plain version {same_plain}")
+            if not (same_int and same_plain):
+                raise AssertionError(f"mega_trace with the seed word {seed} differs")
+            if not aux:
+                hits = torch.stack(by_word[6]).contiguous()
+        ct_aux = torch.where(hits.repeat_interleave(4, 0) >= 0, noise, 0.0)
+        for aux in (None, ct_aux):
+            args = (o, d, pix, samp)
+            by_int = mega_bwd(*args, seed, ts, trt, hits, cts, ct_aux=aux, with_carry=True)
+            by_word = mega_bwd(*args, word, ts, trt, hits, cts, ct_aux=aux, with_carry=True)
+            rays = lambda g: [*g[2], *g[3], *flat_outputs(g[4])]
+            same_rays = all_bits_equal(rays(by_int), rays(by_word))
+            what = f"mega_bwd{'(ct_aux)' if aux is not None else ''} seed {seed}"
+            compare_bwd(by_word, by_int, f"{what}, the device word against the int")
+            compare_bwd(by_word, mega_bwd_plain(*args, word, ts, trt, hits, cts, ct_aux=aux),
+                        f"{what}, the device word against the plain version")
+            log(f"[seed] {what}: ct_o, ct_d and the rebuilt carry bitwise the int's {same_rays}")
+            if not same_rays:
+                raise AssertionError(f"{what}: the per-ray outputs differ with the seed word")
+    n_rep, n_pad = trace_args[5].shape[0], ts.shape[1]
+    regs = [kernel_info(kb.library().poca_mega_info, a, r, n_rep, n_pad, n=4)[:2] for a in (0, 1)]
+    regs_b = [kernel_info(kb.library().poca_mega_bwd_info, n_pad, 1, a, n=3)[:2] for a in (0, 1)]
+    log(f"[seed] phase 6 with the seed word: mega_trace {phase6_ms[0]:.3f} ms a sample (PR 15 "
+        f"(c), (f): {PR15_MEGA_MS[0]}, {PR15_MEGA_MS[1]}), mega_bwd {phase6_ms[1]:.3f} ms a sample "
+        f"(PR 15: {PR15_BWD_MS[0]}, {PR15_BWD_MS[1]}); registers and local bytes a thread: "
+        f"mega_trace_kernel<false> {regs[0]}, <true> {regs[1]}, mega_bwd_kernel<true, false> "
+        f"{regs_b[0]}, <true, true> {regs_b[1]}; {card}")
+
+    # (b) one captured render over seeds, and the progressive frame over configs
+    RENDER_GRAPHS.clear()
+    c0 = RENDER_GRAPHS.captures
+    kw = dict(spp=4, max_depth=DEPTH)
+    with torch.no_grad():
+        for seed in (0, 1, 2):
+            got, ms_jit = timed(lambda: render_radiance_jit(scene, camera, sky, seed=seed, **kw))
+            ref, ms_eager = timed(lambda: render_radiance(scene, camera, sky, seed=seed, **kw))
+            same = all_bits_equal(got, ref)
+            captures = RENDER_GRAPHS.captures - c0
+            log(f"[seed] render_radiance_jit {W}x{H} x 4 spp x d{DEPTH}, seed {seed}: bitwise the "
+                f"eager render {same}, captures {captures} ({ms_jit:.1f} ms, eager "
+                f"{ms_eager:.1f} ms); {card}")
+            if not (same and captures == 2 and len(RENDER_GRAPHS.keys()) == 1):
+                raise AssertionError(f"render_radiance_jit at seed {seed} differs or recaptured")
+    RENDER_GRAPHS.clear()
+    pcam = Camera.make(PROG_W, PROG_H, device=dev, **CAMERA)
+    graphs = GraphedCall(max_entries=2)
+    for seed in (0, 7):
+        cfg = RenderConfig(width=PROG_W, height=PROG_H, max_depth=DEPTH, seed=seed)
+        prog = ProgressiveRenderer(scene, pcam, sky, cfg)
+        prog.graphs = graphs
+        state = AccumulatorState.create(PROG_H, PROG_W, dev)
+        same = True
+        for _ in range(3):
+            img = prog.step()
+            state, ref = frame_step(scene, pcam, prog.sky_tex, state, seed, DEPTH, cfg.denoise)
+            same &= torch.equal(bits(img), bits(ref))
+        log(f"[seed] ProgressiveRenderer.step {PROG_W}x{PROG_H}, config seed {seed}: 3 frames "
+            f"bitwise frame_step {same}, frame graphs captured {graphs.captures}")
+        if not (same and graphs.captures == 1):
+            raise AssertionError(f"the progressive frame at seed {seed} differs or recaptured")
+    graphs.clear()
+
+    # (c) the video: the demo orbit at scripts/torch_bench_video.py's defaults
+    cams = video.orbit_path(camera, VIDEO_FRAMES, degrees=360.0)
+    vkw = dict(spp=VIDEO_SPP, max_depth=DEPTH)
+    frame_rays = W * H * VIDEO_SPP * DEPTH
+    png = lambda paths: [Path(x).read_bytes() for x in paths]
+    with tempfile.TemporaryDirectory(prefix="poca_video16_") as tmp:
+        video.VIDEO_GRAPHS.clear()
+        c0 = video.VIDEO_GRAPHS.captures
+        with torch.no_grad():
+            first_ms, held = first_call_cost(lambda: video.render_frame(
+                video.VIDEO_GRAPHS, scene, cams[0], sky, 0, **vkw))
+        kb.reset_launches()
+        compiled, ms_c = timed(lambda: video.render_video(scene, cams, sky, f"{tmp}/c", seed=0,
+                                                          **vkw))
+        launches_c = dict(kb.LAUNCHES)
+        kb.reset_launches()
+        eager, ms_e = timed(lambda: video.write_frames(None, scene, cams, sky, f"{tmp}/e", seed=0,
+                                                       **vkw))
+        launches_e = dict(kb.LAUNCHES)
+        same = png(compiled) == png(eager)
+        captures = video.VIDEO_GRAPHS.captures - c0
+
+        def frames(runner):
+            with torch.no_grad():
+                for i, cam in enumerate(cams):
+                    video.render_frame(runner, scene, cam, sky, i, **vkw)
+
+        _, ms_c_only = timed(lambda: frames(video.VIDEO_GRAPHS))
+        _, ms_e_only = timed(lambda: frames(None))
+        with torch.no_grad():
+            one = lambda runner: video.render_frame(runner, scene, cams[1], sky, 1, **vkw)
+            _, wall_c1 = timed(lambda: one(video.VIDEO_GRAPHS))
+            busy_c1 = busy_ms(lambda: one(video.VIDEO_GRAPHS), dev)
+            _, wall_e1 = timed(lambda: one(None))
+            busy_e1 = busy_ms(lambda: one(None), dev)
+        n = VIDEO_FRAMES
+        log(f"[video16] {n} orbit frames {W}x{H} x {VIDEO_SPP} spp x d{DEPTH}, demo_scene(0): "
+            f"every PNG byte-equal compiled and eager {same}; compiled {n / ms_c * 1e3:.3f} "
+            f"frames/s with the sink ({ms_c:.1f} ms), {n / ms_c_only * 1e3:.3f} without "
+            f"({ms_c_only / n:.2f} ms a frame, {frame_rays * n / ms_c_only / 1e6:.1f} Mrays/s); "
+            f"eager {n / ms_e * 1e3:.3f} with ({ms_e:.1f} ms), {n / ms_e_only * 1e3:.3f} without "
+            f"({ms_e_only / n:.2f} ms a frame); one frame compiled {wall_c1:.2f} ms wall, "
+            f"{busy_c1:.2f} ms busy ({busy_c1 / wall_c1:.3f}), eager {wall_e1:.2f} ms wall, "
+            f"{busy_e1:.2f} busy ({busy_e1 / wall_e1:.3f}); first call {first_ms / 1e3:.3f} s, "
+            f"{held / 2**30:.3f} GiB held by the frame's graphs; captures {captures}; launches "
+            f"compiled {launches_c}, eager {launches_e}; {card}")
+        if not (same and captures == 3 and len(video.VIDEO_GRAPHS.keys()) == 1
+                and launches_c == launches_e and launches_c["denoise"] == n
+                and all(launches_c[k] > 0 for k in FORWARD_KERNELS)):
+            raise AssertionError("the compiled video differs from the eager one, recaptured or "
+                                 "skipped a kernel")
+        video.VIDEO_GRAPHS.clear()
+        mesh = make_tile_mesh([dev] * 4)
+        mcams = cams[:MESH_FRAMES]
+        meshed, ms_mc = timed(lambda: video.render_video(scene, mcams, sky, f"{tmp}/mc", seed=0,
+                                                         mesh=mesh, **vkw))
+        meshed_e, ms_me = timed(lambda: video.write_frames(None, scene, mcams, sky, f"{tmp}/me",
+                                                           seed=0, mesh=mesh, **vkw))
+        same_m = png(meshed) == png(meshed_e)
+        tiles = tile_graphs(mesh)
+        log(f"[video16] {MESH_FRAMES} frames over a virtual 2x2 mesh on one card: PNGs byte-equal "
+            f"to the eager mesh video {same_m} ({ms_mc:.1f} ms compiled with its captures, "
+            f"{ms_me:.1f} ms eager); tile keys {len(tiles.keys())}, tile captures "
+            f"{tiles.captures}, denoise-and-pack captures {video.VIDEO_GRAPHS.captures - c0 - 3}; "
+            f"{card}")
+        if not (same_m and len(tiles.keys()) == 1):
+            raise AssertionError("the compiled mesh video differs from the eager one")
+        tiles.clear()
+        video.VIDEO_GRAPHS.clear()
+
+    # (d) the tiles: 1024^2 x 4 spp x d8 (phase 9's settings), 1x1 and 2x2 on one card
+    for shape in ((1, 1), (2, 2)):
+        mesh = make_tile_mesh([dev] * (shape[0] * shape[1]), shape=shape)
+        runner = tile_graphs(mesh)
+        tkw = dict(spp=TILE_SPP, max_depth=DEPTH)
+        render_image_sharded(scene, camera, sky, mesh, seed=0, **tkw)  # warm-up and capture
+        first_captures = runner.captures
+        kb.reset_launches()
+        got, ms_t = timed(lambda: render_image_sharded(scene, camera, sky, mesh, seed=0, **tkw))
+        launches_t = dict(kb.LAUNCHES)
+        kb.reset_launches()
+        ref, ms_te = timed(lambda: render_tiles(None, scene, camera, sky, mesh, seed=0, **tkw))
+        same = all_bits_equal(got, ref) and launches_t == dict(kb.LAUNCHES)
+        moved = camera.move_forward(3.0)
+        got2 = render_image_sharded(scene, moved, sky, mesh, seed=11, **tkw)
+        same2 = all_bits_equal(got2, render_tiles(None, scene, moved, sky, mesh, seed=11, **tkw))
+        log(f"[tiles16] render_image_sharded {W}x{H} x {TILE_SPP} spp x d{DEPTH}, mesh {shape} on "
+            f"one card: compiled {ms_t:.1f} ms a frame, eager tiles {ms_te:.1f} ms; bitwise the "
+            f"eager tiles {same}, launches {launches_t}; keys {len(runner.keys())} (one device, "
+            f"one tile shape), captures {first_captures}; another seed and camera bitwise {same2}, "
+            f"captures {runner.captures}; {card}")
+        if not (same and same2 and len(runner.keys()) == 1 and runner.captures == first_captures
+                and first_captures == 2):
+            raise AssertionError(f"the compiled tiles of mesh {shape} differ or recaptured")
+        runner.clear()
+
+    # (e) JAX's keywords: fit with sgd and a callback that reads params["mat"]["kd"]
+    small = camera.resize(256, 256)
+    cfg = inverse.InverseConfig(spp=2, max_depth=4, fields=("kd",), fixed_samples=True)
+    with torch.no_grad():
+        target, _, _ = render_radiance(scene.with_material_params({"kd": scene.kd * 0.8}), small,
+                                       sky, spp=cfg.spp, max_depth=cfg.max_depth)
+    seen = []
+    _, losses = inverse.fit(scene, small, sky, target, cfg, steps=3, optimizer=inverse.sgd(0.5),
+                            callback=lambda s, loss, p: seen.append(p["mat"]["kd"].clone()))
+    runs = []
+    for _ in range(3):
+        init, step = inverse.make_train_step(small, cfg, optimizer=inverse.sgd(0.5), eager=True)
+        params, opt = init(scene, sky)
+        run = [step(params, opt, scene, sky, target, k)[2] for k in range(3)]
+        runs.append(dict(kd=params["mat"]["kd"].detach(), loss=run[2]))
+        first_eager = run[0]
+    got = dict(kd=seen[-1], loss=torch.tensor(losses[2], device=dev))
+    dist_, bar, ok = held_to_eager(got, runs)
+    first_same = losses[0] == float(first_eager)
+    log(f"[api] inverse.fit(optimizer=sgd(0.5), callback reading params['mat']['kd']) on the demo "
+        f"at 256^2 x {cfg.spp} spp x d{cfg.max_depth}: losses {losses}; the first bitwise the eager "
+        f"step's {first_same}; after 3 steps kd and loss relative L2 from the nearest of three "
+        f"eager runs {dist_:.3e}, their own spread {bar:.3e}, held {ok}; the callback saw "
+        f"{len(seen)} steps; {card}")
+    if not (first_same and ok and losses[2] < losses[0] and len(seen) == 3):
+        raise AssertionError("fit with sgd differs from its eager step")
 
 
 def main():
@@ -3000,6 +3284,8 @@ def main():
     kernels.append(compiled_phase(dev, card, scene, camera, sky, progressive_ms, lib_path))
     # ---- phase 15: the compiled training steps (CUDA graphs of forward, backward and Adam)
     train_compiled_phase(dev, card, scene, camera, sky, want)
+    # ---- phase 16: the seed as a device word; the compiled video and tiles; JAX's keywords
+    seed_graphs_phase(dev, card, scene, camera, sky, trace_args, gs, bwd_args, (ms_mega, ms_bwd))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,9 @@
 //   1024, set by the wrapper) the cotangents go straight to device memory
 //   with global atomics.  Atomics make ct_ts and ct_trt depend on the
 //   order of the adds, so they are held to a tolerance, not bitwise.
+// The seed is a word in device memory (the Pallas kernel's seed_ref,
+// mega_bwd_kernel.py:207), read once a block into shared memory, as in
+// mega_trace.cu, so a captured backward replays any seed written there.
 // What bounds it: bytes, narrowly.  Per ray it reads 6 + 2 + 13 words and
 // the depth winner planes (and a textured sample's 4 x depth aux
 // cotangents) and writes 6; per ray-bounce that hit it
@@ -65,11 +68,14 @@ __global__ void __launch_bounds__(POCA_BWD_BLOCK, SMEM_ACC ? POCA_BWD_MIN_BLOCKS
   for (int k = threadIdx.x; k < n_tr; k += blockDim.x) trt[k] = p.trt[k];
   if (SMEM_ACC)
     for (int k = threadIdx.x; k < n_acc; k += blockDim.x) acc[k] = 0.0f;
+  // the seed word, read once a block (a graph replays any seed written there)
+  __shared__ int seed;
+  if (threadIdx.x == 0) seed = p.seed[0];
   __syncthreads();
 
   TableAcc a = {SMEM_ACC ? acc : p.out_tab, np};
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < p.R; i += gridDim.x * blockDim.x)
-    mega_bwd_ray<AUX>(p, i, ts, trt, a);
+    mega_bwd_ray<AUX>(p, i, ts, trt, a, &seed);
 
   if (SMEM_ACC) {
     __syncthreads();
@@ -126,14 +132,14 @@ extern "C" int poca_mega_bwd(
     const float* ct4, const float* ct5, const float* ct6, const float* ct7,
     const float* ct8, const float* ct9, const float* ct10, const float* ct11,
     const float* ct12, const float* ct_aux,
-    float* out_tab, float* out_od, float* carry,
-    int R, int n_pad, int depth, int seed, int smem_acc, cudaStream_t stream) {
+    float* out_tab, float* out_od, float* carry, const int* seed,
+    int R, int n_pad, int depth, int smem_acc, cudaStream_t stream) {
   if (R <= 0) return 0;
   if (depth < 1 || depth > POCA_MAX_DEPTH || n_pad < 1)
     return (int)cudaErrorInvalidValue;
   BwdParams p = {ox, oy, oz, dx, dy, dz, pix, samp, ts, trt, hits,
                  {ct0, ct1, ct2, ct3, ct4, ct5, ct6, ct7, ct8, ct9, ct10, ct11, ct12},
-                 ct_aux, out_tab, out_od, carry, R, n_pad, depth, (uint32_t)seed};
+                 ct_aux, out_tab, out_od, carry, seed, R, n_pad, depth};
   BwdKernel kern;
   size_t smem = 0;
   int per_sm = 0, sms = 0;

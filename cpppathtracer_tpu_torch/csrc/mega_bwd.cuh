@@ -47,8 +47,8 @@ struct BwdParams {
   float* out_tab;  // [17, n_pad], zeroed: ct_ts rows 0-12, ct_trt rows 13-16
   float* out_od;   // [6, R]: ct_o3, ct_d3
   float* carry;    // [10, R] or null: final o3 d3 thru3 missed
+  const int* seed; // the seed word: PCG4D's fourth key (device memory on the card)
   int R, n_pad, depth;
-  uint32_t seed;
 };
 
 // Cotangents of one bounce's winner record
@@ -427,10 +427,12 @@ POCA_HD void get_carry(const float* c, int b, V3& o, V3& d, V3& thru) {
   thru = v3(w[6], w[7], w[8]);
 }
 
-// AUX: p.ct_aux holds the aux cotangents (a textured sample)
+// AUX: p.ct_aux holds the aux cotangents (a textured sample).  `seed`: the
+// seed word as the caller staged it (on the card in shared memory, read
+// once a block from p.seed; on the host p.seed itself).
 template <bool AUX>
 POCA_HD void mega_bwd_ray(const BwdParams& p, int i, const float* ts, const float* trt,
-                          TableAcc acc) {
+                          TableAcc acc, const int* seed) {
   const int R = p.R, np = p.n_pad, depth = p.depth;
   const uint32_t pix = (uint32_t)p.pix[i], samp = (uint32_t)p.samp[i];
   float carry[POCA_CARRY_WORDS * POCA_MAX_DEPTH];  // local memory on the card
@@ -447,7 +449,7 @@ POCA_HD void mega_bwd_ray(const BwdParams& p, int i, const float* ts, const floa
     if (enc >= 0) {
       put_carry(carry, b, o, d, thru);
       float u1, u2, u3;
-      uniforms3(pix, samp, (uint32_t)(1 + b), p.seed, u1, u2, u3);
+      uniforms3(pix, samp, (uint32_t)(1 + b), (uint32_t)*seed, u1, u2, u3);
       BounceFwd f;
       bounce_body(ts, trt, np, enc, o, d, b == 0 ? 0.0f : POCA_TMIN_BOUNCE, u1, u2, u3, f);
       if (b <= first_miss) thru = mul(thru, f.s.atten);
@@ -486,7 +488,8 @@ POCA_HD void mega_bwd_ray(const BwdParams& p, int i, const float* ts, const floa
     const V3 ct_fn = v3(p.ct[9][io], p.ct[10][io], p.ct[11][io]);
     const float ct_ft = p.ct[12][io];
     float u1, u2, u3;
-    uniforms3((uint32_t)p.pix[io], (uint32_t)p.samp[io], (uint32_t)(1 + b), p.seed, u1, u2, u3);
+    uniforms3((uint32_t)p.pix[io], (uint32_t)p.samp[io], (uint32_t)(1 + b), (uint32_t)*seed,
+              u1, u2, u3);
     BounceFwd f;
     bounce_body(ts, trt, np, enc, bo, bd, b == 0 ? 0.0f : POCA_TMIN_BOUNCE, u1, u2, u3, f);
     V3 ct_pa = zero3();

@@ -43,6 +43,10 @@
 //   and t) stays in registers for all bounces; every output is a plane of
 //   R floats or ints, written once.
 //
+// The seed is a word in device memory, as the Pallas kernel's scalar-prefetch
+// seed_ref is (mega_kernel.py:136), read once a block: a CUDA graph that
+// captured a launch replays whatever seed is written there.
+//
 // Phase B of the split trace passes n_alive (read on the device, no host
 // sync) and an alive mask: the counter stops at n_alive, a masked lane
 // publishes neutral outputs (zeros, hit -1, aux 0) without a search, and
@@ -76,8 +80,8 @@ struct MegaParams {
   float* aux;           // [4 * depth, R] (AUX only): pos3 att per bounce
   int* counter;         // the ray counter, 0 at launch
   unsigned long long* stats;  // null, or [2]: lane searches with a ray, warp lane slots
+  const int* seed;       // the seed word: PCG4D's fourth key, read on the device
   int R, n_s, n_p, n_c, n_rep, n_pad, depth, start_bounce;
-  uint32_t seed;
 };
 
 // Neutral outputs of lane i (inactive: past n_alive, or masked)
@@ -105,6 +109,9 @@ __device__ __forceinline__ void mega_paths(const MegaParams& p, int n_work) {
   for (int k = threadIdx.x; k < n_geom; k += blockDim.x) smem[k] = __ldg(p.geom + k);
   for (int k = threadIdx.x; k < n_ts; k += blockDim.x) ts[k] = __ldg(p.ts + k);
   for (int k = threadIdx.x; k < n_tr; k += blockDim.x) trt[k] = __ldg(p.trt + k);
+  // the seed word, read once a block (a graph replays any seed written there)
+  __shared__ uint32_t seed;
+  if (threadIdx.x == 0) seed = (uint32_t)__ldg(p.seed);
   __syncthreads();
 
   const unsigned full = 0xffffffffu;
@@ -162,7 +169,7 @@ __device__ __forceinline__ void mega_paths(const MegaParams& p, int n_work) {
     if (!on) continue;
 
     float u1, u2, u3;
-    uniforms3(pix, samp, (uint32_t)(1 + p.start_bounce + b), p.seed, u1, u2, u3);
+    uniforms3(pix, samp, (uint32_t)(1 + p.start_bounce + b), seed, u1, u2, u3);
     BounceFwd bf;
     bounce_body(ts, trt, p.n_pad, w, o, d, tmin, u1, u2, u3, bf);
     const bool hit = bf.hit;
@@ -256,13 +263,13 @@ extern "C" int poca_mega_trace(
     const float* geom, const float* ts, const float* trt,
     const int* n_alive, const float* amask,
     float* out_f, float* out_o, int* hits, float* aux, int* counter,
-    unsigned long long* stats,
+    unsigned long long* stats, const int* seed,
     int R, int n_s, int n_p, int n_c, int n_rep, int n_pad, int depth,
-    int start_bounce, int seed, cudaStream_t stream) {
+    int start_bounce, cudaStream_t stream) {
   if (R <= 0) return 0;
   MegaParams p = {ox, oy, oz, dx, dy, dz, tx, ty, tz, pix, samp, geom, ts, trt,
-                  n_alive, amask, out_f, out_o, hits, aux, counter, stats,
-                  R, n_s, n_p, n_c, n_rep, n_pad, depth, start_bounce, (uint32_t)seed};
+                  n_alive, amask, out_f, out_o, hits, aux, counter, stats, seed,
+                  R, n_s, n_p, n_c, n_rep, n_pad, depth, start_bounce};
   void (*kern)(MegaParams);
   size_t smem = 0;
   const int err = mega_shape(aux != nullptr, n_rep, n_pad, &kern, &smem);

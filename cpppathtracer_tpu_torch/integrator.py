@@ -64,7 +64,7 @@ from cpppathtracer_tpu_torch.utils.graphs import (
     signature,
     static_twin,
 )
-from cpppathtracer_tpu_torch.utils.rng import sample_key, uniforms4
+from cpppathtracer_tpu_torch.utils.rng import sample_key, uniforms4, write_seed
 
 
 def _textured_kd(tex_id, geom_p, pos, tex_stack, kd):
@@ -440,8 +440,8 @@ def _accumulate(prep: _Prepared, scene, camera, key0, spp: int, seed, max_depth:
     return div_const(acc_rad, float(spp)), acc_n, acc_t
 
 
-def render_radiance(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: int = 0,
-                    pixel_idx=None, sample_offset: int = 0, tex_stack=None,
+def render_radiance(scene, camera, sky_tex, *, spp: int, max_depth: int, seed=0,
+                    pixel_idx=None, sample_offset=0, tex_stack=None,
                     spp_chunk: int = 1):
     """Mean radiance over `spp` samples on the device the scene lives on.
 
@@ -454,8 +454,9 @@ def render_radiance(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: i
     sweep that sets the environment (as ``scripts/perf_knobs.py`` does for
     the JAX package) sets the port's batch the same way.  `tex_stack`
     f32[T, H, W, 3] textures the albedo of objects whose tex_id is >= 0.
-    `sample_offset` may also be an i32 0-dim device tensor (the key buffer
-    of a CUDA graph, ``renderer.ProgressiveRenderer``'s frame).
+    `sample_offset` and `seed` may also be i32 0-dim device tensors (a
+    CUDA graph's key and seed buffers, as JAX traces both): the kernels
+    read the seed on the device, so one capture serves every seed.
     The result is differentiable w.r.t. the scene's material and geometry
     fields, the camera, the sky and the texture stack whenever they
     require grad, on every path (the backward of each sample is
@@ -479,8 +480,8 @@ def render_radiance(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: i
 RENDER_GRAPHS = GraphedCall(max_entries=4)
 
 
-def render_radiance_jit(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: int = 0,
-                        pixel_idx=None, sample_offset: int = 0, tex_stack=None,
+def render_radiance_jit(scene, camera, sky_tex, *, spp: int, max_depth: int, seed=0,
+                        pixel_idx=None, sample_offset=0, tex_stack=None,
                         spp_chunk: int = 1):
     """:func:`render_radiance` compiled, the counterpart of JAX
     `integrator.py:515-517`: same arguments, same result, bit for bit.
@@ -492,11 +493,12 @@ def render_radiance_jit(scene, camera, sky_tex, *, spp: int, max_depth: int, see
     :data:`RENDER_GRAPHS` and replayed spp / spp_chunk times, the sample
     key advanced inside the graph; capture time and graph memory do not
     grow with spp.  The key is what the graph bakes in: every input's
-    shape and dtype, spp, the chunk, max_depth, seed and the POCA_*
-    switches that choose the route.  New values of the same shapes (a
-    moved camera, an edited or refitted scene, another sky, other
-    textures or pixel indices, another sample_offset) are copied into the
-    graph's buffers and replay it.  The outputs are the caller's own
+    shape and dtype, spp, the chunk, max_depth and the POCA_* switches
+    that choose the route.  New values of the same shapes (a moved
+    camera, an edited or refitted scene, another sky, other textures or
+    pixel indices, another sample_offset, another seed: JAX traces both,
+    and the kernels read the seed from the graph's seed buffer) are
+    copied into the graph's buffers and replay it.  The outputs are the caller's own
     tensors (copies of the graph's buffers).  Inputs that require grad
     under grad mode raise ValueError: this is the serving call (a
     compiled training step is ``inverse.make_train_step``'s, or
@@ -514,20 +516,42 @@ def render_radiance_jit(scene, camera, sky_tex, *, spp: int, max_depth: int, see
                           tex_stack=tex_stack, spp_chunk=spp_chunk)
 
 
-def render_key(scene, camera, sky_tex, *, spp: int, max_depth: int, seed: int = 0,
-               pixel_idx=None, tex_stack=None, spp_chunk: int = 1):
+def render_key(scene, camera, sky_tex, *, spp: int, max_depth: int, pixel_idx=None,
+               tex_stack=None, spp_chunk: int = 1):
     """The cache key of :func:`render_radiance_jit`'s graphs for these
-    arguments."""
+    arguments (the seed is not in it: a replay reads it from a buffer)."""
     inputs = (scene, camera, sky_tex, tex_stack, pixel_idx)
-    return ("render", signature(inputs), spp, _spp_chunk(spp, spp_chunk), max_depth, int(seed),
+    return ("render", signature(inputs), spp, _spp_chunk(spp, spp_chunk), max_depth,
             env_switches())
 
 
 def render_graphed(runner: GraphedCall, scene, camera, sky_tex, *, spp: int, max_depth: int,
-                   seed: int = 0, pixel_idx=None, sample_offset: int = 0, tex_stack=None,
+                   seed=0, pixel_idx=None, sample_offset=0, tex_stack=None,
                    spp_chunk: int = 1):
     """:func:`render_radiance_jit`'s body on the graphs of `runner` (its
-    capture backend decides what a capture is)."""
+    capture backend decides what a capture is).  Returns the caller's own
+    tensors: copies of the graph's buffers, which its next replay
+    overwrites."""
+    e = render_replay(runner, scene, camera, sky_tex, spp=spp, max_depth=max_depth, seed=seed,
+                      pixel_idx=pixel_idx, sample_offset=sample_offset, tex_stack=tex_stack,
+                      spp_chunk=spp_chunk)
+    return div_const(e.acc, float(spp)), e.first_n.clone(), e.first_t.clone()
+
+
+def render_replay(runner: GraphedCall, scene, camera, sky_tex, *, spp: int, max_depth: int,
+                  seed=0, pixel_idx=None, sample_offset=0, tex_stack=None, spp_chunk: int = 1,
+                  tail=None):
+    """Copy the inputs, the sample offset and the seed into the buffers of
+    this key's render entry (captured on first use) and replay its chunk
+    graphs: the entry, whose `acc` then holds the radiance summed over the
+    samples and `first_n`, `first_t` the first-hit buffers, until the
+    entry's next replay.
+
+    `tail`, a pair (name, make), adds the work that follows the render to
+    the entry: ``make(e)``, called once as the entry is built, sets up its
+    static buffers and returns the body of one more graph, replayed after
+    the chunks, that reads the entry's buffers (``video.render_video``'s
+    denoise and pack); `name` goes into the key."""
     _check_devices(scene, camera, sky_tex, tex_stack)
     inputs = (scene, camera, sky_tex, tex_stack, pixel_idx)
     if torch.is_grad_enabled() and requires_grad(*inputs):
@@ -537,22 +561,26 @@ def render_graphed(runner: GraphedCall, scene, camera, sky_tex, *, spp: int, max
             "call render_radiance, or wrap the call in torch.no_grad()"
         )
     chunk = _spp_chunk(spp, spp_chunk)
-    key = render_key(scene, camera, sky_tex, spp=spp, max_depth=max_depth, seed=seed,
-                     pixel_idx=pixel_idx, tex_stack=tex_stack, spp_chunk=spp_chunk)
+    key = render_key(scene, camera, sky_tex, spp=spp, max_depth=max_depth, pixel_idx=pixel_idx,
+                     tex_stack=tex_stack, spp_chunk=spp_chunk)
+    if tail is not None:
+        key = key + (tail[0],)
     e = runner.entry(key, lambda r: _capture_render(r, inputs, spp // chunk, chunk, max_depth,
-                                                    seed))
+                                                    tail and tail[1]))
     copy_into(e.inputs, inputs)
     e.key.fill_(sample_offset)
-    for g in e.graphs[:1] + e.graphs[1:] * (spp // chunk - 1):
+    write_seed(e.seed, seed)
+    for g in e.order:
         g.replay()
-    return div_const(e.acc, float(spp)), e.first_n.clone(), e.first_t.clone()
+    return e
 
 
-def _capture_render(runner, inputs, n_chunks: int, chunk: int, max_depth: int, seed):
-    """The entry of one render key: static inputs, the key and accumulator
-    buffers, and the graphs of the first chunk (which also prepares the
-    tables and keeps the first-hit buffers) and, when spp > chunk, of a
-    later chunk."""
+def _capture_render(runner, inputs, n_chunks: int, chunk: int, max_depth: int, tail=None):
+    """The entry of one render key: static inputs, the key, seed and
+    accumulator buffers, and the graphs of the first chunk (which also
+    prepares the tables and keeps the first-hit buffers), when
+    spp > chunk of a later chunk, and of the body `tail(e)` returns when
+    given; `e.order` lists them as a replay runs them."""
     e = Entry()
     e.inputs = static_twin(inputs)
     scene, camera, sky_tex, tex_stack, pixel_idx = e.inputs
@@ -560,22 +588,26 @@ def _capture_render(runner, inputs, n_chunks: int, chunk: int, max_depth: int, s
     if pixel_idx is None:
         pixel_idx = torch.arange(camera.width * camera.height, dtype=torch.int32, device=dev)
     e.key = torch.zeros((), dtype=torch.int32, device=dev)
+    e.seed = torch.zeros((), dtype=torch.int32, device=dev)
     e.acc = torch.zeros((*pixel_idx.shape, 3), dtype=torch.float32, device=dev)
 
     def first():
         with torch.no_grad():
             e.prep = _prepare(scene, sky_tex, pixel_idx, chunk)
-            rad, e.first_n, e.first_t = _sample(e.prep, scene, camera, e.key, seed, max_depth,
+            rad, e.first_n, e.first_t = _sample(e.prep, scene, camera, e.key, e.seed, max_depth,
                                                 tex_stack)
             e.acc.zero_().add_(rad)  # render_radiance's zeros + rad
             e.key.add_(chunk)
 
     def later():
         with torch.no_grad():
-            rad, _, _ = _sample(e.prep, scene, camera, e.key, seed, max_depth, tex_stack)
+            rad, _, _ = _sample(e.prep, scene, camera, e.key, e.seed, max_depth, tex_stack)
             e.acc.add_(rad)
             e.key.add_(chunk)
 
-    bodies = (first, later) if n_chunks > 1 else (first,)
-    e.graphs = runner.capture(*bodies, device=dev)
+    chunks = [first] + [later] * (n_chunks > 1)
+    tails = [] if tail is None else [tail(e)]
+    e.graphs = runner.capture(*chunks, *tails, device=dev)
+    g = e.graphs
+    e.order = g[:1] + g[1:len(chunks)] * (n_chunks - 1) + g[len(chunks):]
     return e

@@ -92,8 +92,9 @@ class Camera:
 
     def ray_gen_planar(self, pixel_idx, sample_idx, seed):
         """Primary rays for flat pixel indices (i32[R], row-major y*W+x) at
-        sample `sample_idx` (int or i32[R]): (o, d), tuples of three flat
-        f32[R] tensors."""
+        sample `sample_idx` (int or i32[R]) and `seed` (int, or an i32
+        tensor of one element on the pixels' device: a graph's seed
+        buffer): (o, d), tuples of three flat f32[R] tensors."""
         u, v, _w, top_left, horizontal, vertical = self.basis()
         x = (pixel_idx % self.width).to(torch.float32)
         y = torch.div(pixel_idx, self.width, rounding_mode="floor").to(torch.float32)

@@ -296,13 +296,14 @@ class SceneBuilder:
         return scene.with_bvh() if bvh else scene
 
 
-def demo_scene(seed: int = 0) -> SceneBuilder:
+def demo_scene(seed: int = 0, pad_to: int | None = None) -> SceneBuilder:
     """The reference's procedural demo scene with deterministic RNG
     (`cppSrc/video_renderer.cpp:39-118`): 20 random materials, a floor
     platform at y=0, and spheres/cylinders marching z in [-550, 550) step
     15.  Glass objects get a nested negative-radius sphere shell half of
     the time; the reference's un-memset inner object is a sphere even for
-    cylinders (`video_renderer.cpp:108-115`)."""
+    cylinders (`video_renderer.cpp:108-115`).  `pad_to` is accepted and
+    ignored, as the JAX package's `demo_scene` ignores it."""
     rng = np.random.RandomState(seed)
     rnd = lambda: float(rng.uniform())
 

@@ -164,17 +164,19 @@ def build_skip_bvh(aabb_min: np.ndarray, aabb_max: np.ndarray, leaf_size: int = 
     }
 
 
-def skip_bvh_tables(center, radius, y_pos, height, prim_type, leaf_size: int = 8):
+def skip_bvh_tables(scene_center, scene_radius, scene_y_pos, scene_height, scene_prim_type,
+                    leaf_size: int = 8):
     """Build the skip-pointer BVH over GROUPED object arrays (numpy) and
     fill the leaf rows with the grouped indices the winner kernels return,
     so the gather epilogue reads the same records as on the dense path.
+    The arguments are JAX's (`ops/bvh.py:470`), names and order.
     Returns node_aabb, node_meta, leaf_objs and leaf_size."""
     sc = {
-        "prim_type": np.asarray(prim_type),
-        "center": np.asarray(center, np.float32),
-        "radius": np.asarray(radius, np.float32),
-        "y_pos": np.asarray(y_pos, np.float32),
-        "height": np.asarray(height, np.float32),
+        "prim_type": np.asarray(scene_prim_type),
+        "center": np.asarray(scene_center, np.float32),
+        "radius": np.asarray(scene_radius, np.float32),
+        "y_pos": np.asarray(scene_y_pos, np.float32),
+        "height": np.asarray(scene_height, np.float32),
     }
     amin, amax = object_aabbs(sc)
     built = build_skip_bvh(amin, amax, leaf_size)

@@ -118,8 +118,8 @@ _I = ctypes.c_int
 # argument types of each C entry point (csrc/*.cu, extern "C")
 _SIGNATURES = {
     # o3 d3 thru3 pix samp | geom ts trt | n_alive amask | out_f out_o hits aux counter
-    # stats | R n_s n_p n_c n_rep n_pad depth start_bounce seed | stream
-    "poca_mega_trace": [_P] * 11 + [_P] * 3 + [_P] * 2 + [_P] * 6 + [_I] * 9 + [_P],
+    # stats | seed word | R n_s n_p n_c n_rep n_pad depth start_bounce | stream
+    "poca_mega_trace": [_P] * 11 + [_P] * 3 + [_P] * 2 + [_P] * 6 + [_P] + [_I] * 8 + [_P],
     # aux R n_rep n_pad | info (registers, local bytes, blocks per SM, grid)
     "poca_mega_info": [_I] * 4 + [_P],
     # device | the opt-in shared memory per block
@@ -130,8 +130,8 @@ _SIGNATURES = {
     "poca_stream_expand": [_P, _P, _P, _I, _P, _P, _I, _I, _P],
     "poca_compact_block_lanes": [],
     # o3 d3 pix samp ts trt hits | 13 cotangent planes ct_aux | out_tab out_od carry |
-    # R n_pad depth seed smem_acc | stream
-    "poca_mega_bwd": [_P] * 11 + [_P] * 14 + [_P] * 3 + [_I] * 5 + [_P],
+    # seed word | R n_pad depth smem_acc | stream
+    "poca_mega_bwd": [_P] * 11 + [_P] * 14 + [_P] * 3 + [_P] + [_I] * 4 + [_P],
     # n_pad smem_acc aux | info (registers, local bytes, blocks per SM)
     "poca_mega_bwd_info": [_I] * 3 + [_P],
     # o3 d3 tmin tmax geom | out | R n_s n_p n_c n_rep tile_rows | stream

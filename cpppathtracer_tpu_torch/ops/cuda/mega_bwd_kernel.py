@@ -25,11 +25,10 @@ default textured backward (its replay's VJP) on the card.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from cpppathtracer_tpu_torch.ops.cuda import build as kb
+from cpppathtracer_tpu_torch.utils.rng import seed_word
 
 # ct_rad vec3, ct_miss_dir vec3, ct_miss_thru vec3, ct_first_n vec3, ct_first_t
 N_COTANGENTS = 13
@@ -47,7 +46,9 @@ def mega_bwd(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, ct_aux=Non
     """Cotangents of one megakernel sample.
 
     o, d: planar primary rays (tuples of f32[R]); pixel_idx, sample_idx
-    i32[R]; seed an int; ts f32[13, n_pad], trt f32[4, n_pad]
+    i32[R]; seed an int or an i32 tensor of one element on the rays'
+    device (read by the kernel there, as by ``mega_trace``); ts
+    f32[13, n_pad], trt f32[4, n_pad]
     (`build_tables_T`); hits i32[depth, R], the saved winner planes;
     ct: the 13 f32[R] cotangent planes of (rad vec3, miss_dir vec3,
     miss_thru vec3, first_n vec3, first_t) (`missed` has none);
@@ -96,6 +97,8 @@ def mega_bwd(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, ct_aux=Non
     if n_pad > MAX_PAD:
         raise ValueError(f"n_pad {n_pad} > {MAX_PAD}: scenes that large take the BVH")
 
+    seed_w = seed_word(seed, dev)
+
     out_tab = torch.zeros((17, n_pad), dtype=f32, device=dev)
     out_od = torch.empty((6, r), dtype=f32, device=dev)
     carry = torch.empty((10, r), dtype=f32, device=dev) if with_carry else None
@@ -104,9 +107,8 @@ def mega_bwd(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, ct_aux=Non
             *[t.data_ptr() for t in planes], pixel_idx.data_ptr(), sample_idx.data_ptr(),
             ts.data_ptr(), trt.data_ptr(), hits.data_ptr(),
             *[t.data_ptr() for t in ct], kb.ptr(ct_aux),
-            out_tab.data_ptr(), out_od.data_ptr(), kb.ptr(carry),
-            r, n_pad, depth, ctypes.c_int32(int(seed) & 0xFFFFFFFF).value,
-            int(n_pad <= SMEM_ACC_MAX_PAD), kb.stream_handle(pixel_idx),
+            out_tab.data_ptr(), out_od.data_ptr(), kb.ptr(carry), seed_w.data_ptr(),
+            r, n_pad, depth, int(n_pad <= SMEM_ACC_MAX_PAD), kb.stream_handle(pixel_idx),
         )
     kb.check(err, "mega_bwd")
     kb.LAUNCHES["mega_bwd"] += 1

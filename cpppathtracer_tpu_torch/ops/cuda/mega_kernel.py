@@ -27,7 +27,7 @@ from cpppathtracer_tpu_torch.ops import planar
 from cpppathtracer_tpu_torch.ops.cuda import build as kb
 from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import ceil8, winner_index_plain
 from cpppathtracer_tpu_torch.types import INF, TMIN_BOUNCE, MaterialType
-from cpppathtracer_tpu_torch.utils.rng import uniforms4
+from cpppathtracer_tpu_torch.utils.rng import seed_word, uniforms4
 
 
 def build_tables_T(gs):
@@ -84,7 +84,10 @@ def mega_trace(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts, dept
                alive_mask=None, with_aux=False, stats=None):
     """Run `depth` bounces for planar rays (o, d: tuples of f32[R]).
 
-    pixel_idx, sample_idx i32[R]; seed an int; geom f32[N_rep, 8]
+    pixel_idx, sample_idx i32[R]; seed an int or an i32 tensor of one
+    element on the rays' device (the kernel reads it there, as the Pallas
+    kernel reads its scalar-prefetch seed, so a captured launch replays
+    any seed written into it); geom f32[N_rep, 8]
     (build_geom_rows); ts, trt from :func:`build_tables_T`.  Phase B of
     the split trace passes `start_bounce`, an input `thru`, `n_alive`
     (i32[1] on the device) and `alive_mask` (f32[R], nonzero = dead):
@@ -140,6 +143,7 @@ def mega_trace(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts, dept
         kb.require(alive_mask, "alive_mask", f32, (r,), dev)
     if stats is not None:
         kb.require(stats, "stats", torch.int64, (2,), dev)
+    seed_w = seed_word(seed, dev)
 
     out_f = torch.empty((14, r), dtype=f32, device=dev)
     out_o = torch.empty((3, r), dtype=f32, device=dev) if with_o else None
@@ -155,9 +159,8 @@ def mega_trace(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts, dept
             geom.data_ptr(), ts.data_ptr(), trt.data_ptr(),
             kb.ptr(n_alive), kb.ptr(alive_mask),
             out_f.data_ptr(), kb.ptr(out_o), hits.data_ptr(), kb.ptr(aux),
-            counter, kb.ptr(stats),
+            counter, kb.ptr(stats), seed_w.data_ptr(),
             r, n_s, n_p, n_c, geom.shape[0], n_pad, depth, start_bounce,
-            ctypes.c_int32(int(seed) & 0xFFFFFFFF).value,
             kb.stream_handle(pixel_idx),
         )
     kb.check(err, "mega_trace")

@@ -3,9 +3,15 @@ of ``cpppathtracer_tpu/parallel/render.py``).
 
 One process drives every device of its mesh, as ``shard_map``'s single
 controller does: the scene, camera and sky are copied once to each device,
-every tile's ``render_radiance(pixel_idx=tile)`` is queued before any
-result is collected (so several cards overlap), and the frame is assembled
-on the mesh's first device.  The RNG is keyed by *global* pixel ids and
+every tile's render is queued before any result is collected (so several
+cards overlap), and the frame is assembled on the mesh's first device.
+On the card each tile's render is compiled, as JAX jits it
+(``parallel/render.py:68``): a replay of the render graph of its device and
+tile shape (``integrator.render_graphed`` on :func:`tile_graphs`, the
+mesh's own cache), whose buffers take the tile's global pixel indices, the
+camera and the seed, so every frame, seed and tile of one shape on one
+device replays one capture; on the CPU it is ``render_radiance(pixel_idx=
+tile)``.  The RNG is keyed by *global* pixel ids and
 padded entries render pixel 0 and are cropped, so the tiled frame equals
 the unsharded one bitwise wherever each tile takes the frame's survivor
 split (``ops/mega.py::_split_plan``, which follows the ray count: a
@@ -22,13 +28,32 @@ distributed.host_tile_rows` gives its rank, over its own mesh, and
 from __future__ import annotations
 
 import dataclasses
+import functools
+import weakref
 
 import torch
 import torch.distributed as dist
 
-from cpppathtracer_tpu_torch.integrator import render_radiance
+from cpppathtracer_tpu_torch.integrator import render_graphed, render_radiance
 from cpppathtracer_tpu_torch.parallel.distributed import process_rows, world
 from cpppathtracer_tpu_torch.parallel.mesh import TileMesh, pad_to_tiles
+from cpppathtracer_tpu_torch.utils.graphs import GraphedCall
+
+# each mesh's tile graphs, kept while the mesh lives
+_TILE_GRAPHS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def tile_graphs(mesh: TileMesh, backend=None) -> GraphedCall:
+    """The cache of `mesh`'s tile graphs, made on first use with `backend`
+    (default the card's).  Its entries are keyed as
+    ``integrator.render_key`` keys them, so by each tile's device and
+    shape; it holds as many as the mesh has tiles, so the keys of one
+    frame never evict each other.  ``tile_graphs(mesh).clear()`` frees
+    them."""
+    graphs = _TILE_GRAPHS.get(mesh)
+    if graphs is None:
+        graphs = _TILE_GRAPHS[mesh] = GraphedCall(max_entries=len(mesh.tiles()), backend=backend)
+    return graphs
 
 
 def to_device(obj, device):
@@ -46,11 +71,14 @@ def to_device(obj, device):
     return obj
 
 
-def _tile_render(scene, camera, sky_tex, pixel_idx_tile, spp, max_depth, seed):
+def _tile_render(scene, camera, sky_tex, pixel_idx_tile, spp, max_depth, seed, runner=None):
     """Render one tile.  pixel_idx_tile: i32[th, tw] of GLOBAL flat pixel
-    indices, -1 for padding (rendered as pixel 0)."""
+    indices, -1 for padding (rendered as pixel 0).  With `runner`, a
+    replay of its render graph for this tile's device and shape (the
+    outputs are copies, never the graph's buffers); else eagerly."""
     th, tw = pixel_idx_tile.shape
-    rad, n0, t0 = render_radiance(
+    render = render_radiance if runner is None else functools.partial(render_graphed, runner)
+    rad, n0, t0 = render(
         scene, camera, sky_tex, spp=spp, max_depth=max_depth, seed=seed,
         pixel_idx=pixel_idx_tile.reshape(-1).clamp(min=0),
     )
@@ -93,13 +121,26 @@ def render_image_sharded(scene, camera, sky_tex, mesh: TileMesh, *, spp, max_dep
     """Tiled render of this process's rows [lo, hi)
     (``distributed.process_rows``: the whole image in a single process) ->
     (radiance f32[h, W, 3], normal f32[h, W, 3], depth f32[h, W]) on the
-    mesh's first device, h = hi - lo."""
+    mesh's first device, h = hi - lo.  On the card each tile replays the
+    graph of its device and shape in :func:`tile_graphs`; `seed` is an
+    int or an i32 0-dim tensor on the mesh's first device."""
+    runner = tile_graphs(mesh) if mesh.first_device.type == "cuda" else None
+    return render_tiles(runner, scene, camera, sky_tex, mesh, spp=spp, max_depth=max_depth,
+                        seed=seed)
+
+
+def render_tiles(runner, scene, camera, sky_tex, mesh: TileMesh, *, spp, max_depth, seed=0):
+    """:func:`render_image_sharded`'s body: each tile through the graphs of
+    `runner` (its capture backend decides what a capture is), or eagerly
+    with `runner` None."""
     rows = process_rows(camera.height)
     grid = global_pixel_grid(camera, mesh, rows)
     with torch.no_grad():  # serving
-        reps = {dev: (to_device(scene, dev), to_device(camera, dev), to_device(sky_tex, dev))
+        reps = {dev: (to_device(scene, dev), to_device(camera, dev), to_device(sky_tex, dev),
+                      to_device(seed, dev))
                 for dev in mesh.distinct_devices()}
-        outs = [_tile_render(*reps[dev], grid[ys, xs].to(dev), spp, max_depth, seed)
+        outs = [_tile_render(*reps[dev][:3], grid[ys, xs].to(dev), spp, max_depth, reps[dev][3],
+                             runner)
                 for dev, ys, xs in _tile_slices(mesh, grid)]
         h, w = rows[1] - rows[0], camera.width
         return tuple(_assemble(mesh, [o[k] for o in outs])[:h, :w] for k in range(3))

@@ -32,6 +32,7 @@ from cpppathtracer_tpu_torch.utils.graphs import (
     signature,
     static_twin,
 )
+from cpppathtracer_tpu_torch.utils.rng import write_seed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +74,7 @@ class AccumulatorState:
         return AccumulatorState(mix=torch.zeros_like(self.mix), sample_idx=0)
 
 
-def frame_step(scene, camera, sky_tex, state: AccumulatorState, seed: int,
+def frame_step(scene, camera, sky_tex, state: AccumulatorState, seed,
                max_depth: int, use_denoise: bool, spp: int = 1):
     """One progressive frame: `spp` samples keyed off the accumulation
     index, the optional denoiser, and the running-average mix.  Returns
@@ -171,18 +172,20 @@ class ProgressiveRenderer:
 
     def frame_key(self):
         """The cache key of this renderer's frame graph: every input's
-        shape and dtype (the resolution among them), the config and the
-        POCA_* switches that choose the route."""
+        shape and dtype (the resolution among them), the config but its
+        seed (a replay reads the seed from a buffer, as JAX traces it) and
+        the POCA_* switches that choose the route."""
         return ("frame", signature((self.scene, self.camera, self.sky_tex)),
-                dataclasses.astuple(self.config), env_switches())
+                dataclasses.astuple(dataclasses.replace(self.config, seed=0)), env_switches())
 
     def step_graphed(self):
         """One frame through the captured graph of :meth:`frame_key`,
         captured on first use (by :attr:`graphs`' backend): the current
         scene, camera, sky and mix are copied into its buffers, the sample
-        key and the mix divisor are written from ``state.sample_idx``, and
-        it replays.  Afterwards ``state.mix`` is the graph's mix buffer,
-        which the next step overwrites; the image returned is a copy."""
+        key and the mix divisor are written from ``state.sample_idx``, the
+        seed from the config, and it replays.  Afterwards ``state.mix`` is
+        the graph's mix buffer, which the next step overwrites; the image
+        returned is a copy."""
         cfg = self.config
         inputs = (self.scene, self.camera, self.sky_tex)
         e = self.graphs.entry(self.frame_key(), lambda r: _capture_frame(r, inputs, cfg))
@@ -192,6 +195,7 @@ class ProgressiveRenderer:
         new_idx = self.state.sample_idx + 1
         e.key.fill_(self.state.sample_idx * cfg.spp_per_frame)
         e.div.fill_(float(new_idx))
+        write_seed(e.seed, cfg.seed)
         e.graphs[0].replay()
         self.state = AccumulatorState(mix=e.mix, sample_idx=new_idx)
         return e.mix.clone()
@@ -203,19 +207,20 @@ class ProgressiveRenderer:
 
 def _capture_frame(runner, inputs, cfg: RenderConfig):
     """The entry of one frame key: static scene, camera and sky, the sample
-    key, mix divisor and mix buffers, and the graph of :func:`frame_step`'s
-    work on them."""
+    key, seed, mix divisor and mix buffers, and the graph of
+    :func:`frame_step`'s work on them."""
     e = Entry()
     e.inputs = static_twin(inputs)
     scene, camera, sky_tex = e.inputs
     dev = scene.device
     e.key = torch.zeros((), dtype=torch.int32, device=dev)
+    e.seed = torch.zeros((), dtype=torch.int32, device=dev)
     e.div = torch.ones((), dtype=torch.float32, device=dev)
     e.mix = torch.zeros((camera.height, camera.width, 3), dtype=torch.float32, device=dev)
 
     def frame():
         with torch.no_grad():
-            e.mix.copy_(_frame(scene, camera, sky_tex, e.mix, e.key, e.div, cfg.seed,
+            e.mix.copy_(_frame(scene, camera, sky_tex, e.mix, e.key, e.div, e.seed,
                                cfg.max_depth, cfg.denoise, cfg.spp_per_frame))
 
     e.graphs = runner.capture(frame, device=dev)

@@ -68,37 +68,41 @@ def signature(obj):
     return obj
 
 
-def _map_tensors(obj, fn):
+def map_tensors(obj, fn):
+    """`obj` with `fn` applied to every tensor in it (through dataclasses,
+    tuples and dicts)."""
     if isinstance(obj, torch.Tensor):
         return fn(obj)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return dataclasses.replace(obj, **{f.name: _map_tensors(getattr(obj, f.name), fn)
+        return dataclasses.replace(obj, **{f.name: map_tensors(getattr(obj, f.name), fn)
                                            for f in dataclasses.fields(obj) if f.init})
     if isinstance(obj, tuple):
-        return tuple(_map_tensors(x, fn) for x in obj)
+        return tuple(map_tensors(x, fn) for x in obj)
     if isinstance(obj, dict):
-        return {k: _map_tensors(v, fn) for k, v in obj.items()}
+        return {k: map_tensors(v, fn) for k, v in obj.items()}
     return obj
 
 
-def _tensors(obj):
+def tensors(obj):
+    """The tensors of `obj` (through dataclasses, tuples and dicts), in
+    order."""
     if isinstance(obj, torch.Tensor):
         yield obj
     elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         for f in dataclasses.fields(obj):
-            yield from _tensors(getattr(obj, f.name))
+            yield from tensors(getattr(obj, f.name))
     elif isinstance(obj, tuple):
         for x in obj:
-            yield from _tensors(x)
+            yield from tensors(x)
     elif isinstance(obj, dict):
         for x in obj.values():
-            yield from _tensors(x)
+            yield from tensors(x)
 
 
 def static_twin(obj):
     """`obj` with every tensor in it replaced by a detached clone: the
     buffers a captured body reads."""
-    return _map_tensors(obj, lambda t: t.detach().clone())
+    return map_tensors(obj, lambda t: t.detach().clone())
 
 
 def copy_into(static, current):
@@ -106,13 +110,13 @@ def copy_into(static, current):
     structure, as :func:`signature` says); a tensor that is its own static
     buffer is left alone."""
     with torch.no_grad():  # a buffer takes values, never an autograd history
-        for dst, src in zip(_tensors(static), _tensors(current), strict=True):
+        for dst, src in zip(tensors(static), tensors(current), strict=True):
             if dst is not src:
                 dst.copy_(src)
 
 
 def requires_grad(*objs) -> bool:
-    return any(t.requires_grad for obj in objs for t in _tensors(obj))
+    return any(t.requires_grad for obj in objs for t in tensors(obj))
 
 
 def env_switches() -> tuple:
@@ -143,11 +147,16 @@ class CudaGraphs:
         """The captured graph (``replay()``, ``reset()``); raises
         RuntimeError when the body cannot be captured."""
         graph = torch.cuda.CUDAGraph()
+        current = torch.cuda.current_stream(device)
         try:
             with torch.cuda.device(device), torch.cuda.graph(
                     graph, pool=pool, stream=torch.cuda.Stream(device)):
                 body()
         except Exception as e:
+            # torch.cuda.graph leaves its capture stream current when ending
+            # the capture raises: later work would run there, unordered with
+            # the default stream
+            torch.cuda.set_stream(current)
             raise RuntimeError(f"CUDA graph capture failed (nothing ran eagerly instead): {e}") from e
         return _OnDevice(graph, device)
 

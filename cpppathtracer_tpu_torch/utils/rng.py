@@ -59,6 +59,30 @@ def _as_i32(v, shape, device):
     return t.expand(shape)
 
 
+def seed_word(seed, device) -> torch.Tensor:
+    """The seed as the kernels read it: an i32[1] word on `device` holding
+    its uint32 bit pattern.  `seed` is an int (a device fill, never a
+    host-to-device copy, so the call can be captured in a CUDA graph) or an
+    i32 tensor of one element on `device` (a graph's seed buffer, returned
+    as a view, so a replay reads whatever was written into it)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int32 or seed.numel() != 1 or seed.device != torch.device(device):
+            raise ValueError(f"a seed tensor is an i32 tensor of one element on {device}, got "
+                             f"{seed.dtype}{tuple(seed.shape)} on {seed.device}")
+        return seed.reshape(1)
+    return torch.full((1,), _u32_bits(int(seed)), dtype=torch.int32, device=device)
+
+
+def write_seed(buf: torch.Tensor, seed):
+    """Write `seed` (an int, or an i32 tensor of one element on buf's
+    device) into a graph's seed buffer `buf` (i32, one element), as its
+    uint32 bit pattern."""
+    if isinstance(seed, torch.Tensor):
+        buf.copy_(seed_word(seed, buf.device).reshape(buf.shape))
+    else:
+        buf.fill_(_u32_bits(int(seed)))
+
+
 def sample_key(sample_idx, r: int, device):
     """The per-ray sample index i32[r] of a sample: `sample_idx` an int (a
     device fill) or an integer tensor of one value or of r (a device tensor

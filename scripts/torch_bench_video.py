@@ -15,7 +15,8 @@ Timing, as the JAX harness's (bench_video.py:52-62): frame 0 alone first
 not called a compile time), then the whole orbit, the clock stopping when
 ``render_video`` returns, with the sink closed and every PNG on disk
 (``wall_s``).  Two figures the JAX harness lacks: ``render_only_wall_s``,
-the same cameras through ``render_radiance`` and ``video.frame_rgb8`` to a
+the same frames through ``video.render_frame`` (on the card the replays of
+``render_video``'s compiled frame on ``video.VIDEO_GRAPHS``) to a
 synchronize, with no sink and no PNG (``wall_s`` less this is what the
 sink costs), and on the card the device busy ms of one such frame under
 torch.profiler; beside them ``png_ms_per_frame``, the writer thread's work
@@ -48,13 +49,17 @@ sys.path.insert(0, REPO)
 import torch  # noqa: E402
 
 from cpppathtracer_tpu_torch.bench import busy_ms, device_label  # noqa: E402
-from cpppathtracer_tpu_torch.integrator import render_radiance  # noqa: E402
 from cpppathtracer_tpu_torch.models.camera import Camera  # noqa: E402
 from cpppathtracer_tpu_torch.models.scene import demo_scene  # noqa: E402
 from cpppathtracer_tpu_torch.ops.texture import procedural_sky  # noqa: E402
 from cpppathtracer_tpu_torch.types import resolve_device  # noqa: E402
 from cpppathtracer_tpu_torch.utils.png import write_png  # noqa: E402
-from cpppathtracer_tpu_torch.video import frame_rgb8, orbit_path, render_video  # noqa: E402
+from cpppathtracer_tpu_torch.video import (  # noqa: E402
+    VIDEO_GRAPHS,
+    orbit_path,
+    render_frame,
+    render_video,
+)
 
 JAX_FILES = ("VIDEO_r4.json", "VIDEO_r5.json")
 
@@ -107,20 +112,19 @@ def main(argv=None):
         wall = time.perf_counter() - t0
         checksums = [sha256_16(p) for p in paths]
 
-    def render_frame(i):
-        cam = cams[i]
-        h, w = cam.height, cam.width
+    def one_frame(i):
+        # render_video's frame without the sink: on the card the replay of its compiled frame
         with torch.no_grad():
-            rad, n0, t0 = render_radiance(scene, cam, sky, seed=i, **render)
-            return frame_rgb8(rad.reshape(h, w, 3), n0.reshape(h, w, 3), t0.reshape(h, w))
+            return render_frame(VIDEO_GRAPHS if on_card else None, scene, cams[i], sky, i,
+                                **render)
 
     sync()
     t0 = time.perf_counter()
     for i in range(len(cams)):
-        render_frame(i)
+        one_frame(i)
     sync()
     render_only = time.perf_counter() - t0
-    frame0 = render_frame(0)
+    frame0 = one_frame(0)
     sync()
     with tempfile.TemporaryDirectory(prefix="poca_png_") as tmp:
         png_s = []
@@ -128,7 +132,7 @@ def main(argv=None):
             t0 = time.perf_counter()
             write_png(os.path.join(tmp, "frame.png"), frame0)
             png_s.append(time.perf_counter() - t0)
-    busy = busy_ms(lambda: render_frame(0), dev) if on_card else None
+    busy = busy_ms(lambda: one_frame(0), dev) if on_card else None
 
     rays = args.size * args.size * args.spp * args.depth * args.frames
     result = {

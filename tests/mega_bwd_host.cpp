@@ -23,14 +23,15 @@ extern "C" int poca_mega_bwd_host(
     const float* ct12, const float* ct_aux,
     float* out_tab, float* out_od, float* carry,
     int R, int n_pad, int depth, int seed) {
+  // the seed word the card's kernel reads from device memory
   if (depth < 1 || depth > POCA_MAX_DEPTH) return 1;
   BwdParams p = {ox, oy, oz, dx, dy, dz, pix, samp, ts, trt, hits,
                  {ct0, ct1, ct2, ct3, ct4, ct5, ct6, ct7, ct8, ct9, ct10, ct11, ct12},
-                 ct_aux, out_tab, out_od, carry, R, n_pad, depth, (uint32_t)seed};
+                 ct_aux, out_tab, out_od, carry, &seed, R, n_pad, depth};
   TableAcc acc = {out_tab, n_pad};
   for (int i = 0; i < R; ++i) {
-    if (ct_aux) mega_bwd_ray<true>(p, i, ts, trt, acc);
-    else mega_bwd_ray<false>(p, i, ts, trt, acc);
+    if (ct_aux) mega_bwd_ray<true>(p, i, ts, trt, acc, p.seed);
+    else mega_bwd_ray<false>(p, i, ts, trt, acc, p.seed);
   }
   return 0;
 }

@@ -825,19 +825,25 @@ def test_sharded_render_virtual_mesh_bitwise_on_card(dev):
     """The demo scene at 192x135 (a mesh that pads the rows), 2 spp, depth
     6, tiled over a virtual 2x2 mesh on one card: bitwise equal to the
     unsharded render, through the kernels (the ray counter and the
-    compaction reorder lanes, not arithmetic)."""
+    compaction reorder lanes, not arithmetic).  The tiles replay one
+    render graph (one device, one tile shape), captured by the first
+    frame; the second frame's replays launch the kernels of four eager
+    tiles."""
     from cpppathtracer_tpu_torch.integrator import render_radiance
     from cpppathtracer_tpu_torch.ops.texture import procedural_sky
     from cpppathtracer_tpu_torch.parallel.mesh import make_tile_mesh
-    from cpppathtracer_tpu_torch.parallel.render import render_image_sharded
+    from cpppathtracer_tpu_torch.parallel.render import render_image_sharded, tile_graphs
 
     scene = demo_scene(0).build(device=dev)
     cam = Camera.make(192, 135, origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0), device=dev)
     sky = torch.from_numpy(procedural_sky(64, 64)).to(dev)
     mesh = make_tile_mesh([dev] * 4)
+    first = render_image_sharded(scene, cam, sky, mesh, spp=2, max_depth=6, seed=3)
     kb.reset_launches()
     got = render_image_sharded(scene, cam, sky, mesh, spp=2, max_depth=6, seed=3)
+    torch.cuda.synchronize()
     assert kb.LAUNCHES["mega_trace"] == 2 * 2 * 4  # phase A and B, 2 samples, 4 tiles
+    assert len(tile_graphs(mesh).keys()) == 1 and all(map(torch.equal, first, got))
     with torch.no_grad():
         rad, n0, t0 = render_radiance(scene, cam, sky, spp=2, max_depth=6, seed=3)
     for a, b in zip(got, (rad.reshape(135, 192, 3), n0.reshape(135, 192, 3), t0.reshape(135, 192))):
@@ -861,6 +867,33 @@ def test_frame_sink_writes_cuda_frames(dev, tmp_path):
     sink.close()
     for i, f in enumerate(frames):
         np.testing.assert_array_equal(np.asarray(Image.open(sink.path(i))), to_rgb8(f))
+
+
+@pytest.mark.gpu
+def test_frame_sink_waits_for_the_stream_that_made_the_frame(dev, tmp_path):
+    """Frames made on a side stream, each right after a long kernel there,
+    and handed to AsyncFrameSink at once: every PNG holds its frame's
+    final bytes (the writer waits for the stream that made the frame, not
+    for its own)."""
+    from PIL import Image
+
+    from cpppathtracer_tpu_torch.video import AsyncFrameSink
+
+    side = torch.cuda.Stream(dev)
+    big = torch.rand((4096, 4096), device=dev)
+    sink = AsyncFrameSink(str(tmp_path))
+    want = []
+    with torch.cuda.stream(side):
+        for i in range(6):
+            frame = torch.full((48, 64, 3), 0, dtype=torch.uint8, device=dev)
+            for _ in range(3):
+                big = big @ big.T / 4096.0  # device work the frame waits behind
+            frame.fill_(40 * i + 1)
+            sink.put(i, frame)
+            want.append(40 * i + 1)
+    sink.close()
+    for i, v in enumerate(want):
+        assert (np.asarray(Image.open(sink.path(i))) == v).all()
 
 
 @pytest.mark.gpu
@@ -1159,9 +1192,11 @@ def test_failed_capture_raises_and_runs_nothing_eagerly_on_card(dev, monkeypatch
 
     monkeypatch.setattr(integrator, "sky_epilogue", syncing_epilogue)
     kb.reset_launches()
+    stream = torch.cuda.current_stream(dev)
     with torch.no_grad(), pytest.raises(RuntimeError, match="capture"):
         integrator.render_graphed(GraphedCall(), scene, cam, sky, spp=1, max_depth=8)
     assert kb.LAUNCHES["mega_trace"] == 2  # the warm-up's sample alone
+    assert torch.cuda.current_stream(dev) == stream  # not the failed capture's stream
     monkeypatch.setattr(integrator, "sky_epilogue", epilogue)
     with torch.no_grad():
         out = integrator.render_radiance(scene, cam, sky, spp=1, max_depth=8)
@@ -1295,7 +1330,7 @@ def test_compiled_train_steps_on_card(dev, which):
             if k == 2:
                 launches = dict(kb.LAUNCHES)
         first.append(losses[0])
-        finals.append(dict(params, loss=losses[2]))
+        finals.append(dict(params["mat"], loss=losses[2]))
         if eager:
             assert launches == compiled_launches
         else:
@@ -1341,3 +1376,187 @@ def test_train_graphs_clear_frees_their_memory_on_card(dev):
     after = pooled() - before[0], torch.cuda.memory_allocated(dev) - before[1]
     assert held[0] > 16 * 2**20 and held[1] > 0, held
     assert after == (0, 0), (held, after)
+
+
+# ---- the seed as a device word; the compiled video and tiles
+
+
+SEEDS = [0, 1, 2**31 + 5, -3]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_aux", [False, True])
+def test_mega_trace_seed_word_on_card(dev, with_aux):
+    """mega_trace (both forms) with the seed as an i32 device word: at
+    seeds 0, 1, 2^31 + 5 and -3 the bits of the same kernel given the int,
+    and the plain version's hit planes and outputs under
+    test_mega_trace_matches_plain_on_card's bounds."""
+    from cpppathtracer_tpu_torch.utils.rng import seed_word
+
+    gs, args = _demo(dev)
+    flat = lambda out: [t for x in out[:6] for t in (x if isinstance(x, tuple) else (x,))] + [
+        *out[6]] + ([c for pos, att in out[7] for c in (*pos, att)] if with_aux else [])
+    for seed in SEEDS:
+        a = list(args)
+        a[4] = seed
+        by_int = mega_trace(*a, counts=gs.counts, depth=8, with_aux=with_aux)
+        a[4] = seed_word(seed, dev).reshape(())
+        by_word = mega_trace(*a, counts=gs.counts, depth=8, with_aux=with_aux)
+        ref = mega_trace_plain(*a, counts=gs.counts, depth=8, with_aux=with_aux)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(flat(by_int), flat(by_word)))
+        agree = (torch.stack(by_word[6]) == torch.stack(ref[6])).all(0)
+        assert float(agree.float().mean()) >= 0.999
+        fg = torch.stack(flat(by_word)[:14])[:, agree]
+        fr = torch.stack(flat(ref)[:14])[:, agree]
+        assert torch.allclose(fg, fr, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aux", [False, True])
+def test_mega_bwd_seed_word_on_card(dev, aux):
+    """mega_bwd (its untextured and textured instances) with the seed as a
+    device word: at each of the four seeds, ct_o, ct_d and the rebuilt
+    carry bitwise the kernel's given the int, the table cotangents within
+    _check_bwd's relative bound (the atomics add in another order each
+    run), and the plain version under _check_bwd's bounds."""
+    from cpppathtracer_tpu_torch.utils.rng import seed_word
+
+    gs = group_scene(demo_scene(0).build(device=dev))
+    for seed in SEEDS:
+        args, _ = _bwd_inputs(dev, gs, 64, 8, seed=seed)
+        hits = args[7]
+        kw = {}
+        if aux:
+            g = torch.Generator(device=dev).manual_seed(1)
+            ct_aux = torch.randn((32, 64 * 64), device=dev, generator=g)
+            kw["ct_aux"] = torch.where(hits.repeat_interleave(4, 0) >= 0, ct_aux, 0.0)
+        by_int = mega_bwd(*args, with_carry=True, **kw)
+        word = list(args)
+        word[4] = seed_word(seed, dev)
+        by_word = mega_bwd(*word, with_carry=True, **kw)
+        torch.cuda.synchronize()
+        for x, y in zip([*by_int[2], *by_int[3], *by_int[4][0], *by_int[4][1], *by_int[4][2],
+                         by_int[4][3]],
+                        [*by_word[2], *by_word[3], *by_word[4][0], *by_word[4][1],
+                         *by_word[4][2], by_word[4][3]]):
+            assert torch.equal(x, y)
+        _check_bwd(by_word, by_int)
+        _check_bwd(by_word, mega_bwd_plain(*word, **kw))
+
+
+@pytest.mark.gpu
+def test_one_render_graph_serves_every_seed_on_card(dev):
+    """render_radiance_jit at seeds 0, 1, 2 and 2^31 + 5 (and the last as a
+    device tensor): one capture, each bitwise the eager render at its
+    seed; ProgressiveRenderer.step over configs that differ in seed alone
+    shares one frame graph, bitwise frame_step."""
+    from cpppathtracer_tpu_torch.integrator import (
+        RENDER_GRAPHS, render_radiance, render_radiance_jit,
+    )
+    from cpppathtracer_tpu_torch.renderer import (
+        AccumulatorState, ProgressiveRenderer, RenderConfig, frame_step,
+    )
+    from cpppathtracer_tpu_torch.utils.graphs import GraphedCall
+    from cpppathtracer_tpu_torch.utils.rng import seed_word
+
+    scene, cam, sky = _serving_scene(dev, "demo")
+    RENDER_GRAPHS.clear()
+    captures = RENDER_GRAPHS.captures
+    with torch.no_grad():
+        for seed in (0, 1, 2, 2**31 + 5, seed_word(2**31 + 5, dev).reshape(())):
+            got = render_radiance_jit(scene, cam, sky, spp=4, max_depth=8, seed=seed)
+            assert _bits_equal(got, render_radiance(scene, cam, sky, spp=4, max_depth=8,
+                                                    seed=seed))
+            assert RENDER_GRAPHS.captures - captures == 2 and len(RENDER_GRAPHS.keys()) == 1
+    RENDER_GRAPHS.clear()
+    graphs = GraphedCall(max_entries=2)
+    for seed in (0, 1, 2):
+        cfg = RenderConfig(width=64, height=64, max_depth=8, seed=seed)
+        r = ProgressiveRenderer(scene, cam, sky, cfg)
+        r.graphs = graphs
+        state = AccumulatorState.create(64, 64, dev)
+        for _ in range(2):
+            img = r.step()
+            state, ref = frame_step(scene, cam, sky, state, seed, cfg.max_depth, cfg.denoise)
+            assert torch.equal(img.view(torch.int32), ref.view(torch.int32))
+    assert graphs.captures == 1
+    graphs.clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiled", [False, True])
+def test_compiled_video_writes_the_eager_pngs_on_card(dev, tmp_path, tiled):
+    """render_video on the card (the compiled frame, or with a virtual 2x2
+    mesh the tile graphs and the compiled denoise and pack) against the
+    eager loop (write_frames with no runner): six 64^2 x 2 spp x d8 orbit
+    frames, every PNG byte-equal, one frame entry captured; a second
+    video of other cameras and seeds captures nothing more."""
+    from cpppathtracer_tpu_torch.parallel.mesh import make_tile_mesh
+    from cpppathtracer_tpu_torch.parallel.render import tile_graphs
+    from cpppathtracer_tpu_torch.video import VIDEO_GRAPHS, orbit_path, render_video, write_frames
+
+    scene, cam, sky = _serving_scene(dev, "demo")
+    mesh = make_tile_mesh([dev] * 4) if tiled else None
+    kw = dict(spp=2, max_depth=8, mesh=mesh)
+    VIDEO_GRAPHS.clear()
+    captures = VIDEO_GRAPHS.captures
+    for k, (cams, seed) in enumerate(((orbit_path(cam, 6), 0),
+                                      (orbit_path(cam.move_forward(3.0), 4), 17))):
+        got = render_video(scene, cams, sky, str(tmp_path / f"c{k}"), seed=seed, **kw)
+        want = write_frames(None, scene, cams, sky, str(tmp_path / f"e{k}"), seed=seed, **kw)
+        assert [open(p, "rb").read() for p in got] == [open(p, "rb").read() for p in want]
+        assert len(VIDEO_GRAPHS.keys()) == 1
+        # the pack; or the first chunk, a later one and the pack
+        assert VIDEO_GRAPHS.captures - captures == (1 if tiled else 3)
+        if tiled:
+            assert len(tile_graphs(mesh).keys()) == 1 and tile_graphs(mesh).captures == 2
+    VIDEO_GRAPHS.clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2), (3, 2)])
+def test_tile_graphs_bitwise_eager_tiles_on_card(dev, shape):
+    """render_image_sharded on the card (each tile a replay of its
+    device's and shape's render graph) against the eager tiles
+    (render_tiles with no runner) at 96x72 x 2 spp x d8 on virtual meshes,
+    the 3x2 one padding the rows: bitwise, one key, and a second frame at
+    another seed and camera captures nothing more."""
+    from cpppathtracer_tpu_torch.parallel.mesh import make_tile_mesh
+    from cpppathtracer_tpu_torch.parallel.render import (
+        render_image_sharded, render_tiles, tile_graphs,
+    )
+
+    scene, _, sky = _serving_scene(dev, "demo")
+    cam = Camera.make(96, 72, origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0), device=dev)
+    mesh = make_tile_mesh([dev] * (shape[0] * shape[1]), shape=shape)
+    for seed, c in ((0, cam), (5, cam.move_forward(2.0))):
+        got = render_image_sharded(scene, c, sky, mesh, spp=2, max_depth=8, seed=seed)
+        want = render_tiles(None, scene, c, sky, mesh, spp=2, max_depth=8, seed=seed)
+        assert _bits_equal(got, want)
+        assert len(tile_graphs(mesh).keys()) == 1 and tile_graphs(mesh).captures == 2
+    tile_graphs(mesh).clear()
+
+
+@pytest.mark.gpu
+def test_fit_with_sgd_on_card(dev):
+    """fit(..., optimizer=sgd(lr), callback=...) on the card: the compiled
+    step captures the optimizer's update; its losses bitwise the eager
+    step's (make_train_step(eager=True)) for three steps with fixed
+    samples, and the callback reads params["mat"]["kd"]."""
+    from cpppathtracer_tpu_torch.integrator import render_radiance
+    from cpppathtracer_tpu_torch.inverse import InverseConfig, fit, make_train_step, sgd
+
+    scene, cam, sky = _serving_scene(dev, "demo")
+    cfg = InverseConfig(spp=2, max_depth=4, fields=("kd",), fixed_samples=True)
+    with torch.no_grad():
+        target, _, _ = render_radiance(scene.with_material_params({"kd": scene.kd * 0.8}), cam,
+                                       sky, spp=2, max_depth=4)
+    seen = []
+    _, losses = fit(scene, cam, sky, target, cfg, steps=3, optimizer=sgd(0.5),
+                    callback=lambda s, loss, p: seen.append(p["mat"]["kd"].clone()))
+    init, step = make_train_step(cam, cfg, optimizer=sgd(0.5), eager=True)
+    params, opt = init(scene, sky)
+    eager = [float(step(params, opt, scene, sky, target, k)[2]) for k in range(3)]
+    assert losses[0] == eager[0] and losses[2] < losses[0] and len(seen) == 3
+    assert not torch.equal(seen[0], seen[2])

@@ -186,12 +186,14 @@ def test_graph_adds_captured_launches_per_replay():
 
 
 def test_render_key_changes_with_static_arguments_only(monkeypatch):
-    """The key changes with resolution, route, seed, spp and depth; not
-    with camera, material or sky values."""
+    """The key changes with resolution, route, spp and depth; not with
+    camera, material or sky values, nor with the seed, which render_key no
+    longer takes (a replay writes it into the graph's seed buffer, as JAX
+    traces it; tests/test_torch_seed_graphs.py)."""
     for k in ("POCA_MEGA", "POCA_PLANAR", "POCA_BVH", "POCA_SPP_CHUNK"):
         monkeypatch.delenv(k, raising=False)
     scene, cam, sky = _demo()
-    kw = dict(spp=2, max_depth=3, seed=0)
+    kw = dict(spp=2, max_depth=3)
     key = render_key(scene, cam, sky, **kw)
     same = [
         render_key(scene, cam.move_forward(1.0).rotate_left(0.1), sky, **kw),
@@ -201,7 +203,6 @@ def test_render_key_changes_with_static_arguments_only(monkeypatch):
     assert all(k == key for k in same)
     other = [
         render_key(scene, cam.resize(32, 12), sky, **kw),
-        render_key(scene, cam, sky, **dict(kw, seed=1)),
         render_key(scene, cam, sky, **dict(kw, spp=4)),
         render_key(scene, cam, sky, **dict(kw, max_depth=4)),
         render_key(scene, cam, sky, **dict(kw, spp_chunk=2)),

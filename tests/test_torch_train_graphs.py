@@ -36,7 +36,7 @@ from cpppathtracer_tpu_torch.models.camera import Camera
 from cpppathtracer_tpu_torch.models.presets import big_camera, big_scene
 from cpppathtracer_tpu_torch.models.scene import demo_scene
 from cpppathtracer_tpu_torch.ops.cuda import build as kb
-from cpppathtracer_tpu_torch.utils.graphs import GraphedCall
+from cpppathtracer_tpu_torch.utils.graphs import GraphedCall, map_tensors, tensors
 
 from torch_port_helpers import RunBody, controlled_scene, port_camera, port_scene, port_sky
 
@@ -95,11 +95,10 @@ def _bits(t):
 
 
 def _same_state(a_params, a_opt, b_params, b_opt):
-    same = lambda x, y: torch.equal(_bits(x.detach()), _bits(y.detach()))
-    return (all(same(a_params[k], b_params[k]) for k in a_params)
-            and all(same(a_opt.mu[k], b_opt.mu[k]) and same(a_opt.nu[k], b_opt.nu[k])
-                    for k in a_params)
-            and torch.equal(a_opt.count, b_opt.count))
+    same = lambda xs, ys: all(torch.equal(_bits(x.detach()), _bits(y.detach()))
+                              for x, y in zip(tensors(xs), tensors(ys), strict=True))
+    return (same(a_params, b_params) and same(a_opt.mu, b_opt.mu)
+            and same(a_opt.nu, b_opt.nu) and torch.equal(a_opt.count, b_opt.count))
 
 
 @pytest.mark.parametrize("fixed", [True, False])
@@ -164,17 +163,17 @@ def test_edited_parameters_are_copied_in_without_recapture():
     eager(p_e, o_e, scene, sky, target, 0)
     with torch.no_grad():
         for p in (p_e, p_g):
-            p["kd"].mul_(0.9)
-            p["emission"] = p["emission"].detach() + 0.25
-            p["emission"].requires_grad_(True)
+            p["mat"]["kd"].mul_(0.9)
+            p["mat"]["emission"] = p["mat"]["emission"].detach() + 0.25
+            p["mat"]["emission"].requires_grad_(True)
         for o in (o_e, o_g):
-            o.mu["kd"].zero_()
+            o.mu["mat"]["kd"].zero_()
     target2 = target.flip(0).contiguous()
-    kd_before = p_g["kd"]
+    kd_before = p_g["mat"]["kd"]
     p_e, o_e, l_e = eager(p_e, o_e, scene, sky, target2, 1)
     p_g, o_g, l_g = train_step_graphed(runner, cam, cfg, p_g, o_g, scene, sky, target2, 1)
     assert torch.equal(_bits(l_e), _bits(l_g)) and _same_state(p_e, o_e, p_g, o_g)
-    assert p_g["kd"] is kd_before and runner.captures == 1 and len(runner.keys()) == 1
+    assert p_g["mat"]["kd"] is kd_before and runner.captures == 1 and len(runner.keys()) == 1
 
 
 def test_train_key_changes_with_config_and_shapes_only(monkeypatch):
@@ -189,7 +188,7 @@ def test_train_key_changes_with_config_and_shapes_only(monkeypatch):
     init, _ = make_train_step(cam, cfg)
     params, opt = init(scene, sky)
     key = train_key(cam, cfg, params, opt, scene, sky, target)
-    moved = {k: v.detach() * 0.5 for k, v in params.items()}
+    moved = map_tensors(params, lambda v: v.detach() * 0.5)
     same = [
         train_key(cam.move_forward(1.0), cfg, params, opt, scene, sky, target),
         train_key(cam, cfg, moved, adam_init(moved), scene, sky * 2.0, target + 1.0),
@@ -333,5 +332,5 @@ def test_compiled_step_matches_jax_jitted_train_step():
         params, opt, loss = train_step_graphed(runner, cam, cfg, params, opt, scene, psky, tgt,
                                                step)
         np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-3)
-        np.testing.assert_allclose(params["kd"].detach().numpy(),
+        np.testing.assert_allclose(params["mat"]["kd"].detach().numpy(),
                                    np.asarray(j_params["mat"]["kd"]), rtol=1e-3)
