@@ -74,7 +74,17 @@ over a virtual 2x2 mesh), the compiled tiles (``render_image_sharded`` at
 1024^2 x 4 spp x d8 tiled 1x1 and 2x2, bitwise the eager tiles, one
 capture per device and tile shape) and ``inverse.fit`` with JAX's
 ``optimizer=`` and ``callback=`` keywords (``[seed]``, ``[video16]``,
-``[tiles16]``, ``[api]`` lines); and prints:
+``[tiles16]``, ``[api]`` lines), then phase 17: the compiled sharded
+training step (``inverse.make_sharded_train_step``'s graphs, a body for
+each device of the mesh and the count, reduce and update on its first,
+against its eager step on a 1024^2 frame x 4 spp x d8, kd and emission,
+Adam, over a virtual 2x2 mesh of 512^2 tiles and over 1x1: the loss of
+each of three steps bitwise the eager step's from the same state, the
+gradients within the eager step's own run-to-run difference, the
+parameters after three steps within that of three eager runs, a replay's
+launches the eager step's, each kernel among torch.profiler's records,
+the memory held and given back; then JAX's harness size, one 1024^2 tile
+x 16 spp x d8, compiled and eager; ``[sharded17]`` lines); and prints:
   - the card's name and power limit (nvidia-smi);
   - one JSON line {"kernels": [...]}: beside the keys every kernel has,
     only numbers this run measured, read from the built kernels or had the
@@ -2169,6 +2179,13 @@ def sass_opcodes(lib_path, mangled):
     return counts or None
 
 
+def graph_pool_bytes():
+    """Bytes of the device's segments that belong to a CUDA graph's private
+    memory pool."""
+    return sum(x["total_size"] for x in torch.cuda.memory_snapshot()
+               if tuple(x["segment_pool_id"]) != (0, 0))
+
+
 def first_call_cost(fn):
     """Wall ms of fn()'s first call (on a graphed call: the warm-up, the
     capture and the first replays) and the device memory it left held
@@ -2903,6 +2920,175 @@ def seed_graphs_phase(dev, card, scene, camera, sky, trace_args, gs, bwd_args, p
         raise AssertionError("fit with sgd differs from its eager step")
 
 
+SHARD_SPP = 4  # samples of phase 17 (a)'s sharded step (phase 9's tiles)
+SHARD_FULL_SPP = 16  # phase 17 (c): scripts/bench_scaling.py's one 1024^2 tile x 16 spp x d8
+SHARD_KERNELS = ("mega_trace", "stream_compact", "stream_expand", "mega_bwd")
+
+
+def sharded_train_phase(dev, card, scene, camera, sky):
+    """Phase 17: the compiled sharded training step.  (a) and (b):
+    inverse.make_sharded_train_step compiled and eager on demo_scene(0) at
+    the bench camera, a 1024^2 frame x 4 spp x d8, kd and emission, Adam,
+    the target the demo with perturbed albedos; over a virtual 2x2 mesh
+    (512^2 tiles) and over 1x1, three steps each.  At every step three
+    eager steps from copies of the compiled run's parameters and state,
+    then the compiled step: its loss bitwise theirs, its .grad within
+    held_to_eager's bar of theirs, its launches those of an eager step
+    (from the second step on: the first call also warms up and captures),
+    and every kernel of the path launched.  The wall ms a step both ways,
+    the device busy ms and share, the first call's ms and the memory it
+    left held; the captures (one a device body and key, the count, reduce
+    and update on the first device); each kernel of a replay among
+    torch.profiler's records; the parameters after three compiled steps
+    within held_to_eager's bar of three eager runs of three steps; and
+    train_step.graphs.clear() giving back the memory held.  (c) JAX's
+    harness size, one 1024^2 tile x 16 spp x d8 (n = 1 on this card):
+    compiled and eager ms a step, each compiled loss bitwise an eager
+    step's from the same state.  Every check raises."""
+    import copy
+
+    from cpppathtracer_tpu_torch.bench import busy_ms
+    from cpppathtracer_tpu_torch.integrator import render_radiance
+    from cpppathtracer_tpu_torch.inverse import InverseConfig, make_sharded_train_step
+    from cpppathtracer_tpu_torch.ops.cuda import build as kb
+    from cpppathtracer_tpu_torch.parallel.mesh import make_tile_mesh
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3, dict(kb.LAUNCHES)
+
+    def grads_of(params):
+        return {k: p.grad for k, p in params.items()}
+
+    def tally(launches):
+        return {k: launches[k] for k in SHARD_KERNELS}
+
+    cfg = InverseConfig(spp=SHARD_SPP, max_depth=DEPTH, fields=("kd", "emission"))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    kd_true = (scene.kd + 0.2 * torch.rand(scene.kd.shape, device=dev, generator=gen)
+               - 0.1).clamp(0, 1)
+    with torch.no_grad():
+        target, _, _ = render_radiance(scene.with_material_params({"kd": kd_true}), camera, sky,
+                                       spp=cfg.spp, max_depth=cfg.max_depth, seed=cfg.seed)
+    for shape in ((2, 2), (1, 1)):
+        mesh = make_tile_mesh([dev] * (shape[0] * shape[1]), shape=shape)
+        init, step = make_sharded_train_step(mesh, camera, cfg)
+        _, eager = make_sharded_train_step(mesh, camera, cfg, eager=True)
+        params, opt, pix, tgt = init(scene, target)
+        start = copy.deepcopy((params, opt))
+        walls = {"compiled": [], "eager": []}
+        same_loss, held, same_launches, launches, loss_cs = [], [], [], {}, []
+        for k in range(3):
+            losses, runs = [], []
+            for _ in range(3):
+                p, o = copy.deepcopy((params, opt))
+                (_, _, loss_e), ms, launches["eager"] = timed(
+                    lambda: eager(p, o, scene, sky, pix, tgt))
+                walls["eager"].append(ms)
+                losses.append(loss_e)
+                runs.append(grads_of(p))
+            run = lambda: step(params, opt, scene, sky, pix, tgt)
+            if k == 0:
+                out = []
+                pool0 = graph_pool_bytes()
+                first_ms, held_bytes = first_call_cost(lambda: out.append(run()[2]))
+                pool_held = graph_pool_bytes() - pool0
+                loss_c = out[0]
+            else:
+                (_, _, loss_c), ms, launches["compiled"] = timed(run)
+                walls["compiled"].append(ms)
+                same_launches.append(launches["compiled"] == launches["eager"]
+                                     and all(launches["compiled"][n] > 0 for n in SHARD_KERNELS))
+            loss_cs.append(float(loss_c))
+            same_loss.append(all(torch.equal(bits(loss_c), bits(x)) for x in losses))
+            held.append(held_to_eager(grads_of(params), runs))
+        captures = step.graphs.captures
+        bodies = [str(d) for d in step.graphs[step.graphs.keys()[0]].bodies]
+        # busy, profiler records and a later step's captures, on copies of the state
+        p, o = copy.deepcopy((params, opt))
+        again = lambda: step(p, o, scene, sky, pix, tgt)
+        busy_c = busy_ms(again, dev)
+        busy_e = busy_ms(lambda: eager(p, o, scene, sky, pix, tgt), dev)
+        kb.reset_launches()
+        seen = {n: c for n, (c, _) in profiled_kernels(again, need=("mega_bwd_kernel",)).items()}
+        counted = kernel_launches(kb.LAUNCHES)
+        # the parameters after three steps against three eager runs of three steps
+        finals = []
+        for _ in range(3):
+            p, o = copy.deepcopy(start)
+            for _ in range(3):
+                eager(p, o, scene, sky, pix, tgt)
+            finals.append({k: v.detach() for k, v in p.items()})
+        d_par, bar_par, ok_par = held_to_eager({k: v.detach() for k, v in params.items()},
+                                               finals)
+        new_captures = step.graphs.captures - captures
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_reserved()
+        step.graphs.clear()
+        torch.cuda.empty_cache()
+        freed = mem0 - torch.cuda.memory_reserved()
+        pool_left = graph_pool_bytes() - pool0
+        ms_c, ms_e = (sum(walls[x]) / len(walls[x]) for x in ("compiled", "eager"))
+        rays = camera.width * camera.height * cfg.spp * cfg.max_depth
+        log(f"[sharded17] make_sharded_train_step, mesh {shape} on one card (tiles "
+            f"{camera.height // shape[0]}x{camera.width // shape[1]}), {W}x{H} x {cfg.spp} spp x "
+            f"d{cfg.max_depth}, kd and emission, Adam: ms a step compiled {walls['compiled']} "
+            f"eager {walls['eager']}; rays/s fwd+bwd compiled {rays / ms_c * 1e3:.4g}, eager "
+            f"{rays / ms_e * 1e3:.4g}; device busy compiled {busy_c:.3f} ms ({busy_c / ms_c:.3f} "
+            f"of the mean step), eager {busy_e:.3f} ms ({busy_e / ms_e:.3f}); first call "
+            f"{first_ms:.1f} ms, {held_bytes / 2**30:.3f} GiB held after it (the graphs' pools "
+            f"{pool_held / 2**30:.3f} GiB), {freed / 2**30:.3f} GiB given back by graphs.clear() "
+            f"(the pools' segments left {pool_left} bytes); {card}")
+        log(f"[sharded17] mesh {shape}: compiled losses {loss_cs}; each "
+            f"bitwise the eager steps' from the same state {same_loss}; gradients, relative L2 "
+            f"from the nearest of three eager runs {[h[0] for h in held]}, their own spread "
+            f"{[h[1] for h in held]}, within twice it {[h[2] for h in held]}; parameters after 3 "
+            f"steps {d_par:.3e} from the nearest of three eager runs, their spread "
+            f"{bar_par:.3e}, within twice it {ok_par}; captures {captures} (a body on each of "
+            f"{bodies}, count, reduce and update on the first device), {new_captures} after; "
+            f"launches of a replay {tally(launches['compiled'])}, of an eager step "
+            f"{tally(launches['eager'])}: equal and none zero {same_launches}; kernels of a "
+            f"replay counted {counted}, records torch.profiler kept {seen}")
+        if not (all(same_loss) and all(h[2] for h in held) and ok_par and all(same_launches)
+                and captures == len(bodies) + 3 and new_captures == 0
+                and seen_within(seen, counted) and pool_held > 0 and pool_left <= 0
+                and freed > 0):
+            raise AssertionError(f"the compiled sharded train step over mesh {shape} differs "
+                                 "from the eager one, recaptured, or kept its memory")
+
+    # (c) scripts/bench_scaling.py's size: one 1024^2 tile x 16 spp x d8 on the card
+    cfg = InverseConfig(spp=SHARD_FULL_SPP, max_depth=DEPTH, fields=("kd", "emission"))
+    mesh = make_tile_mesh([dev])
+    init, step = make_sharded_train_step(mesh, camera, cfg)
+    _, eager = make_sharded_train_step(mesh, camera, cfg, eager=True)
+    params, opt, pix, tgt = init(scene, torch.zeros((W * H, 3), device=dev))
+    first_ms, held_bytes = first_call_cost(lambda: step(params, opt, scene, sky, pix, tgt))
+    walls, same = {"compiled": [], "eager": []}, []
+    for _ in range(2):
+        p, o = copy.deepcopy((params, opt))
+        (_, _, loss_e), ms_e, launches_e = timed(lambda: eager(p, o, scene, sky, pix, tgt))
+        (_, _, loss_c), ms_c, launches_c = timed(lambda: step(params, opt, scene, sky, pix, tgt))
+        walls["eager"].append(ms_e)
+        walls["compiled"].append(ms_c)
+        same.append(torch.equal(bits(loss_c), bits(loss_e)) and launches_c == launches_e)
+    step.graphs.clear()
+    rays = W * H * cfg.spp * cfg.max_depth
+    ms_c, ms_e = (min(walls[x]) for x in ("compiled", "eager"))
+    log(f"[sharded17] JAX's harness size, one {W}x{H} tile x {cfg.spp} spp x d{cfg.max_depth} "
+        f"(n = 1): ms a step compiled {walls['compiled']}, eager {walls['eager']}; rays/s fwd+bwd "
+        f"compiled {rays / ms_c * 1e3:.4g}, eager {rays / ms_e * 1e3:.4g}; first call "
+        f"{first_ms:.1f} ms, {held_bytes / 2**30:.3f} GiB held; losses bitwise and launches "
+        f"equal {same} ({tally(launches_c)}); {card}")
+    if not all(same):
+        raise AssertionError("the compiled sharded step at the harness size differs from the "
+                             "eager one")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -3286,6 +3472,8 @@ def main():
     train_compiled_phase(dev, card, scene, camera, sky, want)
     # ---- phase 16: the seed as a device word; the compiled video and tiles; JAX's keywords
     seed_graphs_phase(dev, card, scene, camera, sky, trace_args, gs, bwd_args, (ms_mega, ms_bwd))
+    # ---- phase 17: the compiled sharded training step (CUDA graphs a device of the mesh)
+    sharded_train_phase(dev, card, scene, camera, sky)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

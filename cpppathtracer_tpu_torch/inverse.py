@@ -15,7 +15,8 @@ cfg.optimize_sky; for the sharded step the flat ``{field: leaf}``.  On the
 card :func:`make_train_step`'s step is one CUDA graph
 (``utils/graphs.py``), the counterpart of JAX's jitted ``train_step``; the
 eager step runs the same operations.  :func:`make_sharded_train_step` is
-the step over a pixel-tile mesh (``parallel/render.py``), eager.
+the step over a pixel-tile mesh (``parallel/render.py``), compiled on the
+card too: a graph for each device of the mesh and a few on its first.
 """
 
 from __future__ import annotations
@@ -29,7 +30,13 @@ import torch.distributed as dist
 
 from cpppathtracer_tpu_torch.integrator import render_radiance
 from cpppathtracer_tpu_torch.parallel.distributed import process_rows, world
-from cpppathtracer_tpu_torch.parallel.render import global_pixel_grid, make_sharded_loss
+from cpppathtracer_tpu_torch.parallel.render import (
+    capture_sharded_grad,
+    global_pixel_grid,
+    make_sharded_loss,
+    replay_sharded_grad,
+    sharded_grad_key,
+)
 from cpppathtracer_tpu_torch.utils.graphs import (
     Entry,
     GraphedCall,
@@ -275,8 +282,10 @@ def fit(scene, camera, sky_tex, target, cfg: InverseConfig, steps: int = 100,
     return scene.with_material_params({**scene.material_params(), **mat}), losses
 
 
-def make_sharded_train_step(mesh, camera, cfg: InverseConfig, optimizer: Optimizer | None = None):
-    """The train step over a pixel-tile mesh: the tiles' loss
+def make_sharded_train_step(mesh, camera, cfg: InverseConfig, optimizer: Optimizer | None = None,
+                            *, eager: bool = False):
+    """The train step over a pixel-tile mesh, the counterpart of JAX
+    `inverse.py:111-140`: the tiles' loss
     (``parallel.render.make_sharded_loss``), its backward, and the
     optimizer's update (default ``adam(cfg.learning_rate)``) of parameters
     and optimizer state that every process holds whole.
@@ -288,15 +297,29 @@ def make_sharded_train_step(mesh, camera, cfg: InverseConfig, optimizer: Optimiz
     (or [H, W, 3]) image, both padded to the mesh tiling;
     `train_step(params, opt, scene, sky_tex, pix, target)` updates params
     and opt in place and returns (params, opt, loss), the loss of the
-    parameters before the update.  With a ``torch.distributed`` group of
-    more than one process each process renders its own rows, and the loss
-    and the parameter gradients are all-reduced before the update, so
-    every process takes the same step.  Eager.
+    parameters before the update, and leaves each parameter's ``.grad``
+    set to its gradient.  The samples are cfg.seed's, the same every step
+    (JAX's sharded loss takes no sample offset).  With a
+    ``torch.distributed`` group of more than one process each process
+    renders its own rows, and the loss and the parameter gradients are
+    all-reduced before the update, so every process takes the same step.
+
+    On the card train_step is compiled, as JAX jits it
+    (:func:`sharded_train_step_graphed`): the graphs of the sharded value
+    and gradients (``parallel.render.capture_sharded_grad``, one for each
+    distinct device of the mesh and two on its first device) and one more
+    of the optimizer's update, captured on the first call and replayed
+    after; its graphs are ``train_step.graphs`` (``.clear()`` frees them).
+    On the CPU, and with `eager`, it is the eager step.
     """
     optimizer = optimizer or adam(cfg.learning_rate)
     loss_fn = make_sharded_loss(mesh, cfg.spp, cfg.max_depth, cfg.seed)
+    graphs = GraphedCall(max_entries=2)
 
     def train_step(params, opt, scene, sky_tex, pix, target):
+        if not (eager or scene.device.type == "cpu"):
+            return sharded_train_step_graphed(graphs, mesh, camera, cfg, params, opt, scene,
+                                              sky_tex, pix, target, optimizer)
         for p in params.values():
             p.grad = None
         loss = loss_fn(params, scene, camera, sky_tex, pix, target)
@@ -319,4 +342,68 @@ def make_sharded_train_step(mesh, camera, cfg: InverseConfig, optimizer: Optimiz
         tgt[:hi - lo, :w] = image[lo:hi].to(pix.device)
         return params, optimizer.init(params), pix, tgt
 
+    train_step.graphs = graphs
     return init, train_step
+
+
+def sharded_train_key(mesh, camera, cfg: InverseConfig, params, opt, scene, sky_tex, pix,
+                      target):
+    """The cache key of the compiled sharded train step: the sharded value
+    and gradients' key (``parallel.render.sharded_grad_key``), the
+    optimizer state's shapes and the config."""
+    inputs = (scene, camera, sky_tex, pix, target)
+    return sharded_grad_key(mesh, cfg.spp, cfg.max_depth, cfg.seed, params, inputs) + (
+        "train", signature(opt), dataclasses.astuple(cfg))
+
+
+def sharded_train_step_graphed(runner: GraphedCall, mesh, camera, cfg: InverseConfig, params,
+                               opt, scene, sky_tex, pix, target,
+                               optimizer: Optimizer | None = None):
+    """The compiled sharded train step on the graphs of `runner` (its
+    capture backend decides what a capture is): the caller's values are
+    copied into the graphs' buffers, the sharded value and gradients
+    replay (``parallel.render.replay_sharded_grad``), the loss and the
+    gradients are all-reduced between the replays in a group of several
+    processes, the update's graph replays on the mesh's first device, and
+    the updated parameters and state are copied back into the caller's
+    tensors, each ``.grad`` set to a copy of its gradient.  `optimizer`
+    defaults to ``adam(cfg.learning_rate)``; a runner's entries take one
+    optimizer (the key does not name it).  Returns (params, opt, loss).
+
+    The collectives run between the replays, not inside a graph: they are
+    a few calls a step whatever the mesh (n, the loss and one per field),
+    and so the one code path serves NCCL on the cards and gloo, which
+    cannot be captured, on the CPU."""
+    optimizer = optimizer or adam(cfg.learning_rate)
+    inputs = (scene, camera, sky_tex, pix, target)
+    key = sharded_train_key(mesh, camera, cfg, params, opt, scene, sky_tex, pix, target)
+    e = runner.entry(key, lambda r: _capture_sharded_train(r, mesh, cfg, optimizer, params, opt,
+                                                           inputs))
+    copy_into(e.opt, opt)
+    replay_sharded_grad(e, params, inputs)
+    if world()[0] > 1:
+        dist.all_reduce(e.loss)
+        for g in e.grads.values():
+            dist.all_reduce(g)
+    e.update.replay()
+    copy_into((params, opt), (e.params[e.first], e.opt))
+    for k, p in params.items():
+        p.grad = e.grads[k].clone()
+    return params, opt, e.loss.clone()
+
+
+def _capture_sharded_train(runner, mesh, cfg: InverseConfig, optimizer: Optimizer, params, opt,
+                           inputs):
+    """The entry of one sharded train key: the sharded value and
+    gradients' entry, the static optimizer state, and the graph of the
+    optimizer's update of the first device's static parameters by the
+    summed gradients.  Warm-up and capture step the static buffers only;
+    every replay starts from the caller's values."""
+    e = capture_sharded_grad(runner, mesh, cfg.spp, cfg.max_depth, cfg.seed, params, inputs)
+    e.opt = static_twin(opt)
+
+    def update():
+        optimizer.update(e.params[e.first], e.grads, e.opt)
+
+    (e.update,) = runner.capture(update, device=e.first)
+    return e

@@ -19,6 +19,16 @@ split (``ops/mega.py::_split_plan``, which follows the ray count: a
 does).  A tile that takes another plan adds the same radiance terms in
 another float32 order, as a device of the JAX package's mesh does.
 
+The sharded loss (:func:`make_sharded_loss`) is eager; its value and
+gradients are compiled on the card as JAX jits them
+(:func:`make_sharded_value_and_grad`, the counterpart of
+``jax.jit(jax.value_and_grad(loss))``): one graph of every tile's forward
+and backward for each distinct device of the mesh, and two small ones on
+the first device, the count of valid values before them and the sums
+after, with the copies across devices issued by the host between the
+replays (:func:`capture_sharded_grad`).  ``inverse.
+make_sharded_train_step`` adds the optimizer's update to the same entry.
+
 With a ``torch.distributed`` group of more than one process, each process
 renders the band of rows that :func:`~cpppathtracer_tpu_torch.parallel.
 distributed.host_tile_rows` gives its rank, over its own mesh, and
@@ -37,7 +47,14 @@ import torch.distributed as dist
 from cpppathtracer_tpu_torch.integrator import render_graphed, render_radiance
 from cpppathtracer_tpu_torch.parallel.distributed import process_rows, world
 from cpppathtracer_tpu_torch.parallel.mesh import TileMesh, pad_to_tiles
-from cpppathtracer_tpu_torch.utils.graphs import GraphedCall
+from cpppathtracer_tpu_torch.utils.graphs import (
+    Entry,
+    GraphedCall,
+    copy_into,
+    env_switches,
+    signature,
+    static_twin,
+)
 
 # each mesh's tile graphs, kept while the mesh lives
 _TILE_GRAPHS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
@@ -146,6 +163,22 @@ def render_tiles(runner, scene, camera, sky_tex, mesh: TileMesh, *, spp, max_dep
         return tuple(_assemble(mesh, [o[k] for o in outs])[:h, :w] for k in range(3))
 
 
+def _valid(pix_tile):
+    return (pix_tile >= 0).to(torch.float32)[..., None]
+
+
+def _tile_sq_err(scene, camera, sky_tex, pix_tile, target_tile, spp, max_depth, seed):
+    """One tile's masked squared error, summed (0-dim)."""
+    rad, _, _ = _tile_render(scene, camera, sky_tex, pix_tile, spp, max_depth, seed)
+    err = (rad - target_tile) * _valid(pix_tile)
+    return torch.sum(err * err)
+
+
+def _tile_count(pix_tile):
+    """The count of one tile's valid values (three a pixel), a float."""
+    return torch.sum(_valid(pix_tile)) * 3.0
+
+
 def make_sharded_loss(mesh: TileMesh, spp: int, max_depth: int, seed: int = 0):
     """Build loss(params, scene, camera, sky_tex, pix, target) for sharded
     inverse rendering.
@@ -161,6 +194,8 @@ def make_sharded_loss(mesh: TileMesh, spp: int, max_depth: int, seed: int = 0):
     all-reduced and the loss returned is this process's share of it: the
     shares, and their gradients, sum over the ranks to the loss and its
     gradient (``inverse.make_sharded_train_step`` all-reduces both).
+    This is the eager form: :func:`make_sharded_value_and_grad` gives its
+    value and gradients compiled.
     """
 
     def loss_fn(params, scene, camera, sky_tex, pix, target):
@@ -173,14 +208,179 @@ def make_sharded_loss(mesh: TileMesh, spp: int, max_depth: int, seed: int = 0):
         sums, counts = [], []
         for dev, ys, xs in _tile_slices(mesh, pix):
             pix_t = pix[ys, xs].to(dev)
-            rad, _, _ = _tile_render(*reps[dev], pix_t, spp, max_depth, seed)
-            valid = (pix_t >= 0).to(torch.float32)[..., None]
-            err = (rad - target[ys, xs].to(dev)) * valid
-            sums.append(torch.sum(err * err).to(out))
-            counts.append((torch.sum(valid) * 3.0).to(out))
+            sums.append(_tile_sq_err(*reps[dev], pix_t, target[ys, xs].to(dev), spp, max_depth,
+                                     seed).to(out))
+            counts.append(_tile_count(pix_t).to(out))
         total, n = torch.stack(sums).sum(), torch.stack(counts).sum()
         if world()[0] > 1:
             dist.all_reduce(n)
         return total / n
 
     return loss_fn
+
+
+def make_sharded_value_and_grad(mesh: TileMesh, spp: int, max_depth: int, seed: int = 0, *,
+                                eager: bool = False):
+    """The value and parameter gradients of :func:`make_sharded_loss`, the
+    counterpart of ``jax.jit(jax.value_and_grad(make_sharded_loss(...)))``
+    (``scripts/bench_scaling.py:112-113``).
+
+    Returns vg(params, scene, camera, sky_tex, pix, target) -> (loss,
+    {field: gradient}), the loss's arguments; with a ``torch.distributed``
+    group of more than one process, this process's share of both, as the
+    loss gives it.  On the card vg is compiled (:func:`sharded_grad_graphed`
+    on the graphs ``vg.graphs``, which ``.clear()`` frees): the same loss
+    bit for bit, the same gradients as far as the backward's float atomics
+    repeat.  On the CPU, and with `eager`, it is the eager loss and
+    ``torch.autograd.grad``, one PyTorch operation at a time."""
+    loss_fn = make_sharded_loss(mesh, spp, max_depth, seed)
+    graphs = GraphedCall(max_entries=2)
+
+    def value_and_grad(params, scene, camera, sky_tex, pix, target):
+        if eager or scene.device.type == "cpu":
+            loss = loss_fn(params, scene, camera, sky_tex, pix, target)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            return loss.detach(), dict(zip(params, grads))
+        return sharded_grad_graphed(graphs, mesh, spp, max_depth, seed, params, scene, camera,
+                                    sky_tex, pix, target)
+
+    value_and_grad.graphs = graphs
+    return value_and_grad
+
+
+def sharded_grad_key(mesh: TileMesh, spp, max_depth, seed, params, inputs):
+    """The cache key of the compiled sharded value and gradients: the mesh,
+    the render settings, the shape, dtype and device of every input
+    (`inputs` = (scene, camera, sky_tex, pix, target)) and the POCA_*
+    switches that choose the route."""
+    layout = (mesh.shape, tuple(str(d) for d in mesh.devices.flat))
+    return ("sharded_grad", layout, spp, max_depth, seed, signature((params, inputs)),
+            env_switches())
+
+
+def sharded_grad_graphed(runner: GraphedCall, mesh: TileMesh, spp, max_depth, seed, params,
+                         scene, camera, sky_tex, pix, target):
+    """The compiled sharded value and gradients on the graphs of `runner`
+    (its capture backend decides what a capture is): (loss, {field:
+    gradient}), copies of the graphs' buffers on the mesh's first
+    device."""
+    inputs = (scene, camera, sky_tex, pix, target)
+    key = sharded_grad_key(mesh, spp, max_depth, seed, params, inputs)
+    e = runner.entry(key, lambda r: capture_sharded_grad(r, mesh, spp, max_depth, seed, params,
+                                                         inputs))
+    replay_sharded_grad(e, params, inputs)
+    return e.loss.clone(), {k: g.clone() for k, g in e.grads.items()}
+
+
+def capture_sharded_grad(runner: GraphedCall, mesh: TileMesh, spp, max_depth, seed, params,
+                         inputs):
+    """The entry of one key of the compiled sharded value and gradients,
+    its graphs replayed in this order by :func:`replay_sharded_grad`:
+
+    - `count`, on the mesh's first device: n, the count of valid values of
+      the static pixel grid, tile by tile, stacked and summed as the loss
+      does (it depends on the grid alone);
+    - `bodies`, one for each distinct device of the mesh: that device's
+      static copy of the parameters, leaves that require grad, and its
+      twins of scene, camera and sky; every tile the device holds
+      rendered and its masked squared error summed; ``torch.autograd.
+      grad`` of those sums onto the parameters, each sum's cotangent the
+      1 / n that autograd of total / n hands it; the sums and the
+      gradients written into one flat static buffer on the device;
+    - `reduce`, on the first device: the tiles' sums stacked in tile order
+      and summed, over n (`loss`), and each field's gradient summed over
+      the devices in mesh order (`grads`).
+
+    A capture is bound to one device's stream, so what crosses devices
+    (the caller's values in, n out, each device's flat buffer back to the
+    first device) is copied by the host between replays; each copy orders
+    the two devices' streams itself, and no host waits.  Warm-up and
+    capture run on the static buffers alone."""
+    scene, camera, sky_tex, pix, target = inputs
+    first = mesh.first_device
+    e = Entry()
+    e.first, e.devices = first, mesh.distinct_devices()
+    e.tiles = _tile_slices(mesh, pix)
+    e.pix, e.target = pix.detach().to(first).clone(), target.detach().to(first).clone()
+    # each tile's pixels and target: views of the full grids on the first device (as the
+    # loss reads them there), static copies on the others
+    e.tile_in = [(e.pix[ys, xs], e.target[ys, xs]) if dev == first
+                 else (e.pix[ys, xs].to(dev), e.target[ys, xs].to(dev)) for dev, ys, xs in e.tiles]
+    e.n = torch.zeros((), device=first)
+    e.params, e.inputs, e.n_on, e.flat, e.landed, e.mine = {}, {}, {}, {}, {}, {}
+    n_grads = sum(v.numel() for v in params.values())
+    for d in e.devices:
+        e.mine[d] = [i for i, (dev, _, _) in enumerate(e.tiles) if dev == d]
+        e.params[d] = {k: v.detach().to(d).clone().requires_grad_(True)
+                       for k, v in params.items()}
+        e.inputs[d] = static_twin(to_device((scene, camera, sky_tex), d))
+        e.n_on[d] = e.n if d == first else torch.zeros((), device=d)
+        e.flat[d] = torch.zeros(len(e.mine[d]) + n_grads, device=d)
+        e.landed[d] = e.flat[d] if d == first else torch.zeros_like(e.flat[d], device=first)
+    # (device, place in its flat buffer) of each tile's sum, in tile order
+    where = [(d, e.mine[d].index(i)) for i, (d, _, _) in enumerate(e.tiles)]
+
+    def count():
+        e.n.copy_(torch.stack([_tile_count(e.pix[ys, xs]) for _, ys, xs in e.tiles]).sum())
+
+    def device_body(d):
+        def body():
+            sc, cam, sky = e.inputs[d]
+            sc = sc.with_material_params(e.params[d])
+            sums = [_tile_sq_err(sc, cam, sky, *e.tile_in[i], spp, max_depth, seed)
+                    for i in e.mine[d]]
+            ct = torch.ones((), device=d) / e.n_on[d]
+            grads = torch.autograd.grad(sums, list(e.params[d].values()),
+                                        grad_outputs=[ct] * len(sums))
+            with torch.no_grad():
+                torch.cat([torch.stack(sums), *(g.reshape(-1) for g in grads)], out=e.flat[d])
+
+        return body
+
+    def reduce():
+        e.loss = torch.stack([e.landed[d][pos] for d, pos in where]).sum() / e.n
+        e.grads, start = {}, 0
+        for k, v in params.items():
+            parts = [e.landed[d][len(e.mine[d]) + start:][:v.numel()] for d in e.devices]
+            g = parts[0].clone()
+            for x in parts[1:]:
+                g += x
+            e.grads[k] = g.view(v.shape)
+            start += v.numel()
+
+    (e.count,) = runner.capture(count, device=first)
+    for d in e.devices:  # the bodies' warm-up and capture divide by the grid's own count
+        if d != first:
+            e.n_on[d].copy_(e.n)
+    e.bodies = {d: runner.capture(device_body(d), device=d)[0] for d in e.devices}
+    (e.reduce,) = runner.capture(reduce, device=first)
+    return e
+
+
+def replay_sharded_grad(e: Entry, params, inputs):
+    """Copy the caller's values into the buffers of a
+    :func:`capture_sharded_grad` entry and replay its graphs: `e.loss` and
+    `e.grads` then hold the loss and the gradients (this process's share
+    in a group of several) until the entry's next replay.  All the copies
+    into the devices go ahead of the devices' bodies: a copy from the
+    first device runs on its stream, which would otherwise hold it behind
+    the first device's own body, and the devices would take turns."""
+    scene, camera, sky_tex, pix, target = inputs
+    copy_into((e.pix, e.target), (pix, target))
+    e.count.replay()
+    if world()[0] > 1:
+        dist.all_reduce(e.n)
+    for d in e.devices:
+        copy_into((e.params[d], e.inputs[d]), (params, (scene, camera, sky_tex)))
+        if d != e.first:
+            e.n_on[d].copy_(e.n)
+    for (dev, ys, xs), (pix_t, target_t) in zip(e.tiles, e.tile_in):
+        if dev != e.first:
+            pix_t.copy_(e.pix[ys, xs])
+            target_t.copy_(e.target[ys, xs])
+    for d in e.devices:
+        e.bodies[d].replay()
+    for d in e.devices:
+        if d != e.first:
+            e.landed[d].copy_(e.flat[d])
+    e.reduce.replay()

@@ -2,8 +2,9 @@
 
 The JAX package compiles each call a user makes (``integrator.py:515-517``
 ``render_radiance_jit``, ``renderer.py:98-108`` ``frame_step``,
-``inverse.py:75-80`` ``train_step``, ``bench.py:53``'s
-``jax.jit(jax.value_and_grad(loss_fn))``) into one XLA program.  Eager
+``inverse.py:75-80`` ``train_step`` and ``:118`` its sharded twin,
+``bench.py:53``'s ``jax.jit(jax.value_and_grad(loss_fn))``) into one XLA
+program.  Eager
 PyTorch issues the same work one operation at a time, and on the card the
 host then sets the pace.  A :class:`GraphedCall`
 captures a call's bodies once with ``torch.cuda.graph`` and replays them.
@@ -19,9 +20,13 @@ Its design:
   the static arguments (resolution, samples, depth, seed, the route and
   the environment switches the route reads, :func:`env_switches`).
 - Capture runs each body once on a side stream first (the kernels' build
-  and load, ``cudaFuncSetAttribute``, allocator growth), then captures all
-  of an entry's bodies into one memory pool, on the device that holds the
-  bodies' tensors, which need not be the current one; a replay runs there.
+  and load, ``cudaFuncSetAttribute``, allocator growth), then captures the
+  bodies of one :meth:`GraphedCall.capture` call into one memory pool, on
+  the device that holds the bodies' tensors, which need not be the
+  current one; a replay runs there.  An entry whose work spans devices
+  (the sharded training step, ``parallel/render.py``) makes one call for
+  each device, and its caller copies what crosses devices between the
+  replays: a capture records one device's stream.
 - A kernel wrapper counts its launches in Python, which a replay does not
   run: each :class:`Graph` records how far ``build.LAUNCHES`` moved while
   it was captured, undoes that (nothing was launched), and adds it back at
@@ -211,7 +216,8 @@ class Graph:
 
 class Entry:
     """The state of one cached entry: its static buffers and graphs, set
-    as attributes by the code that builds it."""
+    as attributes by the code that builds it.  Its graphs may lie on
+    several devices, from one :meth:`GraphedCall.capture` call each."""
 
 
 class GraphedCall:

@@ -31,6 +31,15 @@ The card has two forms of the mesh, and --mode picks either or both:
            its threads' stacks and exits, so a hung rank fails the run and
            shows where it hung.
 
+Each mode times the step twice over: eagerly (``step_s``, the loss and
+``torch.autograd.grad``, PR 12's figures) and compiled (the ``compiled``
+columns: ``parallel.render.make_sharded_value_and_grad``, the counterpart
+of bench_scaling.py:113's ``jax.jit(jax.value_and_grad(loss_fn))``, whose
+graphs one device body a card, plus a count and a reduce on the first,
+replay a capture made by its first call; ``first_s`` is that first call).
+On the CPU the compiled call is the eager step, as every compiled entry
+point of the port is there.
+
 Each step time is the best of 3 after a warm-up (bench_scaling.py:69-78),
 ``comm_step_s`` and ``dispatch_s`` the best of 10; on the card ``busy_ms``
 is the first card's (rank 0's) device busy ms over one step under
@@ -90,6 +99,7 @@ from cpppathtracer_tpu_torch.parallel.mesh import make_tile_mesh, visible_cards 
 from cpppathtracer_tpu_torch.parallel.render import (  # noqa: E402
     global_pixel_grid,
     make_sharded_loss,
+    make_sharded_value_and_grad,
 )
 from cpppathtracer_tpu_torch.types import resolve_device  # noqa: E402
 
@@ -157,14 +167,24 @@ def peak_gib(dev):
     return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
 
 
-def row(n, mode, mesh, h, w, args, t_step, loss, grads, t_comm, t_disp, busy, check, peak):
+def row(n, mode, mesh, h, w, args, t_step, loss, grads, t_comm, t_disp, busy, check, peak,
+        compiled):
     return {
         "n_devices": n, "mode": mode, "mesh": list(mesh), "image": [h, w],
         "step_s": t_step, "rays_per_s": h * w * args.spp * args.depth / t_step,
         "loss": float(loss), "comm_bytes": sum(g.numel() * g.element_size() for g in grads),
         "comm_step_s": t_comm, "dispatch_s": t_disp, "compute_s_est": t_step - t_comm,
         "busy_ms": busy, "peak_gib": peak, "check": check,
+        "compiled": dict(compiled, rays_per_s=h * w * args.spp * args.depth / compiled["step_s"]),
     }
+
+
+def compiled_columns(t_first, t_step, out, busy, ref, eager_loss):
+    """The compiled step's columns: its first call's seconds (the capture),
+    best step seconds, busy ms, check against the one-card step, and
+    whether its loss is the eager step's bit for bit."""
+    return {"first_s": t_first, "step_s": t_step, "busy_ms": busy, "check": compare(ref, out),
+            "loss_bitwise": bool(torch.equal(out[0], eager_loss))}
 
 
 def process_row(n, args, dev):
@@ -191,6 +211,15 @@ def process_row(n, args, dev):
     step()  # warm-up
     t_step, (loss, grads) = timed(step, 3)
     peak = peak_gib(first)
+    vg = make_sharded_value_and_grad(mesh, args.spp, args.depth)
+
+    def step_compiled():
+        loss_c, grads_c = vg(params, scene, cam, sky, pix, target)
+        sync_all(cards)
+        return loss_c, list(grads_c.values())
+
+    t_first, _ = timed(step_compiled, 1)  # the capture and one replay
+    t_compiled, out_c = timed(step_compiled, 3)
     # autograd's collective: each card's gradient tree copied to the first card and summed
     trees = [[g.to(d) for g in grads] for d in cards]
 
@@ -210,10 +239,14 @@ def process_row(n, args, dev):
 
     near_empty()
     t_disp, _ = timed(near_empty, 10)
-    busy = busy_ms(step, first) if first.type == "cuda" else None
-    check = compare(one_card_step(first, cam, args), (loss, grads))
+    on_card = first.type == "cuda"
+    busy = busy_ms(step, first) if on_card else None
+    busy_c = busy_ms(step_compiled, first) if on_card else None
+    vg.graphs.clear()
+    ref = one_card_step(first, cam, args)
     return row(n, "process", (ty, tx), h, w, args, t_step, loss, grads, t_comm, t_disp, busy,
-               check, peak)
+               compare(ref, (loss, grads)), peak,
+               compiled_columns(t_first, t_compiled, out_c, busy_c, ref, loss))
 
 
 def rank_main(rank, world, args, on_card, rendezvous, out_dir, spawned):
@@ -260,11 +293,23 @@ def rank_main(rank, world, args, on_card, rendezvous, out_dir, spawned):
             dist.all_reduce(t, op=dist.ReduceOp.MAX)
             return float(t)
 
+        vg = make_sharded_value_and_grad(mesh, args.spp, args.depth)
+
+        def step_compiled():
+            loss_c, grads_c = vg(params, scene, cam, sky, pix, target)
+            dist.all_reduce(loss_c)
+            for g in grads_c.values():
+                dist.all_reduce(g)
+            sync()
+            return loss_c, list(grads_c.values())
+
         if on_card:
             torch.cuda.reset_peak_memory_stats(dev)
         step()  # warm-up: NCCL's first all-reduce and, on a fresh tree, the kernels' build
         t_step, (loss, grads) = timed(step, 3, barrier, slowest)
         peak = peak_gib(dev)
+        t_first, _ = timed(step_compiled, 1, barrier, slowest)  # the capture and one replay
+        t_compiled, out_c = timed(step_compiled, 3, barrier, slowest)
         spare = [g.clone() for g in grads]
 
         def comm():
@@ -281,21 +326,24 @@ def rank_main(rank, world, args, on_card, rendezvous, out_dir, spawned):
             sync()
 
         t_disp, _ = timed(near_empty, 10, barrier, slowest)
-        busy = None
-        if on_card:  # every rank profiles its step, and all take it again if one saw nothing
+        def rank_busy(fn):
+            """Every rank profiles fn, and all take it again if one saw
+            nothing."""
             for _ in range(3):
-                mine = profile_busy_ms(step, dev)
+                mine = profile_busy_ms(fn, dev)
                 least = torch.tensor([mine], dtype=torch.float64, device=dev)
                 dist.all_reduce(least, op=dist.ReduceOp.MIN)
                 if float(least) > 0:
-                    busy = mine
-                    break
-            else:
-                raise RuntimeError("torch.profiler recorded no device time")
+                    return mine
+            raise RuntimeError("torch.profiler recorded no device time")
+
+        busy, busy_c = (rank_busy(step), rank_busy(step_compiled)) if on_card else (None, None)
+        vg.graphs.clear()
         if rank == 0:
-            check = compare(one_card_step(dev, cam, args), (loss, grads))
+            ref = one_card_step(dev, cam, args)
             out = row(world, "procs", (world, 1), cam.height, cam.width, args, t_step, loss,
-                      grads, t_comm, t_disp, busy, check, peak)
+                      grads, t_comm, t_disp, busy, compare(ref, (loss, grads)), peak,
+                      compiled_columns(t_first, t_compiled, out_c, busy_c, ref, loss))
             out["backend"] = dist.get_backend()
             Path(out_dir, "rank0.json").write_text(json.dumps(out))
     finally:
@@ -382,11 +430,15 @@ def main(argv=None):
                 f"step={r['step_s'] * 1e3:.2f} ms rays/s={r['rays_per_s']:.4g} "
                 f"comm={r['comm_bytes']}B comm_step={r['comm_step_s'] * 1e3:.4f} ms "
                 f"dispatch={r['dispatch_s'] * 1e3:.4f} ms busy={r['busy_ms']} ms "
-                f"check={r['check']}")
+                f"check={r['check']}; compiled step={r['compiled']['step_s'] * 1e3:.2f} ms "
+                f"first={r['compiled']['first_s'] * 1e3:.1f} ms busy={r['compiled']['busy_ms']} ms "
+                f"loss bitwise the eager {r['compiled']['loss_bitwise']} "
+                f"check={r['compiled']['check']}")
     for r in rows:
-        t1 = next((q["step_s"] for q in rows if q["mode"] == r["mode"] and q["n_devices"] == 1),
-                  None)
-        r["efficiency"] = t1 / r["step_s"] if t1 else None
+        one = next((q for q in rows if q["mode"] == r["mode"] and q["n_devices"] == 1), None)
+        r["efficiency"] = one["step_s"] / r["step_s"] if one else None
+        r["compiled"]["efficiency"] = (one["compiled"]["step_s"] / r["compiled"]["step_s"]
+                                       if one else None)
 
     result = {
         "backend": dev.type,
@@ -399,12 +451,16 @@ def main(argv=None):
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=2)
-    failed = [(r["mode"], r["n_devices"]) for r in rows if not r["check"]["ok"]]
+    failed = [(r["mode"], r["n_devices"], form) for r in rows
+              for form, check in (("eager", r["check"]), ("compiled", r["compiled"]["check"]))
+              if not check["ok"]]
     if failed:
         raise SystemExit(f"the sharded loss or gradients differ from the one-card step: {failed}")
+    eff = lambda x: None if x is None else round(x, 3)
     print(json.dumps({"scaling": [{"n": r["n_devices"], "mode": r["mode"],
-                                   "eff": None if r["efficiency"] is None
-                                   else round(r["efficiency"], 3)} for r in rows],
+                                   "eff": eff(r["efficiency"]),
+                                   "eff_compiled": eff(r["compiled"]["efficiency"])}
+                                  for r in rows],
                       "device": label}), flush=True)
 
 

@@ -9,16 +9,23 @@ over ``make_tile_mesh()`` of every visible card, against the unsharded
 render on the first card: bitwise, and wall times (median of `reps` warm
 runs, each ending in a synchronize of every card); then the sharded loss
 and its kd / emission gradients at 256^2 x 1 spp x d4 over the same mesh
-against the single-device ones (rtol 1e-5 / 1e-4, atol 1e-7).
+against the single-device ones (rtol 1e-5 / 1e-4, atol 1e-7); then
+``inverse.make_sharded_train_step`` at that size, eager and compiled (its
+CUDA graphs: a body a card and three on the first): each form's first
+step (the compiled one's captures its graphs) held to the single device's
+loss and gradients, the compiled loss bitwise the eager one's, and the
+median ms of `reps` later steps of each.
 
 Part 2, `procs` processes (default: one per visible card; NCCL on the
 cards, gloo with --device cpu), a file rendezvous in a temporary
 directory: each rank renders its ``host_tile_rows`` on its own device and
 ``gather_frame`` assembles the frame on rank 0, which holds it bitwise
-against its own unsharded render and times both; then one step of
-``inverse.make_sharded_train_step`` whose all-reduced loss and gradients
-rank 0 holds against the one-process step (rtol 1e-5 / 1e-4), at
-min(256, SIZE)^2 x 1 spp x d4.
+against its own unsharded render and times both; then
+``inverse.make_sharded_train_step``, eager and compiled, at min(256,
+SIZE)^2 x 1 spp x d4: each form's first step's all-reduced loss and
+gradients, which rank 0 holds against the one-process step (rtol 1e-5 /
+1e-4), the compiled loss bitwise the eager one's, and the median ms of
+`reps` later steps of each form.
 
 Prints one JSON line per part with the device's name (and, on the card,
 its power limit); any failed check exits non-zero.
@@ -103,6 +110,39 @@ def _single_loss(scene, cam, sky, target, fields=("kd", "emission")):
     return loss, torch.autograd.grad(loss, list(p.values()))
 
 
+def _train_forms(mesh, cam, scene, sky, target, reps, devices):
+    """make_sharded_train_step's eager and compiled forms (kd and
+    emission, 1 spp, d4) from the same start: {form: (the first step's
+    loss, its gradients, its ms, the median ms of `reps` later steps)}."""
+    from cpppathtracer_tpu_torch.inverse import InverseConfig, make_sharded_train_step
+
+    cfg = InverseConfig(spp=1, max_depth=LOSS_DEPTH, fields=("kd", "emission"))
+    forms = {}
+    for name in ("eager", "compiled"):
+        init, step = make_sharded_train_step(mesh, cam, cfg, eager=name == "eager")
+        params, opt, pix, tgt = init(scene, target)
+        run = lambda: step(params, opt, scene, sky, pix, tgt)
+        _sync(devices)
+        t0 = time.perf_counter()
+        loss = run()[2]
+        _sync(devices)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        grads = [params[k].grad.clone() for k in cfg.fields]
+        _, ms, _ = _median_ms(run, reps, devices)
+        forms[name] = (loss, grads, first_ms, ms)
+        step.graphs.clear()
+    return forms
+
+
+def _train_columns(forms, l1, g1):
+    """The JSON columns of _train_forms against the single device's loss
+    l1 and gradients g1."""
+    (le, ge, _, ms_e), (lc, gc, first_c, ms_c) = forms["eager"], forms["compiled"]
+    return dict(train_step_ms=ms_e, train_step_compiled_ms=ms_c, train_first_compiled_ms=first_c,
+                train_close=_grads_close(l1, g1, le, ge) and _grads_close(l1, g1, lc, gc),
+                train_loss_bitwise=bool(torch.equal(lc, le)))
+
+
 def one_process(args):
     """Part 1: every visible card under one process."""
     from cpppathtracer_tpu_torch.integrator import render_radiance
@@ -135,18 +175,21 @@ def one_process(args):
                                                    global_pixel_grid(small, mesh), target)
     g2 = torch.autograd.grad(l2, list(p2.values()))
     close = _grads_close(l1, g1, l2, g2)
+    train = _train_columns(_train_forms(mesh, small, scene, sky, target, args.reps, devices),
+                           l1, g1)
     out = dict(part="one process", mesh=list(mesh.shape), devices=[str(d) for d in devices],
                size=s, spp=args.spp, depth=DEPTH, unsharded_ms=ms_one, mesh_ms=ms_mesh,
-               mesh_runs_ms=runs, bitwise=same, loss_grads_close=close)
+               mesh_runs_ms=runs, bitwise=same, loss_grads_close=close, **train)
     print(json.dumps(out), flush=True)
     _check(same, "the tiled render over the cards differs from the unsharded render")
     _check(close, "the sharded loss or its gradients differ from the single-device ones")
+    _check(train["train_close"] and train["train_loss_bitwise"],
+           "the sharded train step's loss or gradients differ, compiled or eager")
 
 
 def rank_main(rank, world, args, rendezvous, out_dir):
     """Part 2: one rank, on its own device."""
     from cpppathtracer_tpu_torch.integrator import render_radiance
-    from cpppathtracer_tpu_torch.inverse import InverseConfig, make_sharded_train_step
     from cpppathtracer_tpu_torch.parallel import distributed
     from cpppathtracer_tpu_torch.parallel.mesh import make_tile_mesh
     from cpppathtracer_tpu_torch.parallel.render import render_image_sharded
@@ -175,11 +218,8 @@ def rank_main(rank, world, args, rendezvous, out_dir):
 
         side = min(LOSS_SIZE, args.size)
         small = cam.resize(side, side)
-        cfg = InverseConfig(spp=1, max_depth=LOSS_DEPTH, fields=("kd", "emission"))
         target = torch.full((side * side, 3), 0.25)
-        init, step = make_sharded_train_step(mesh, small, cfg)
-        params, opt, pix, tgt = init(scene, target)
-        params, opt, loss = step(params, opt, scene, sky, pix, tgt)
+        forms = _train_forms(mesh, small, scene, sky, target, args.reps, [dev])
         if rank == 0:
             with torch.no_grad():
                 (whole, _, _), ms_one, _ = _median_ms(
@@ -188,11 +228,10 @@ def rank_main(rank, world, args, rendezvous, out_dir):
             s = args.size
             same = bool(np.array_equal(frame, whole.reshape(s, s, 3).cpu().numpy()))
             l1, g1 = _single_loss(scene, small, sky, target.to(dev))
-            close = _grads_close(l1, g1, loss, [params[k].grad for k in cfg.fields])
             Path(out_dir, "rank0.json").write_text(json.dumps(dict(
                 part=f"{world} processes", backend=torch.distributed.get_backend(), size=s,
                 spp=args.spp, depth=DEPTH, band_ms=ms_band, unsharded_ms=ms_one, bitwise=same,
-                loss_grads_close=close)))
+                **_train_columns(forms, l1, g1))))
     finally:
         distributed.shutdown()
 
@@ -205,7 +244,8 @@ def many_processes(args):
         out = json.loads(Path(tmp, "rank0.json").read_text())
     print(json.dumps(out), flush=True)
     _check(out["bitwise"], "the gathered frame differs from the unsharded render")
-    _check(out["loss_grads_close"], "the distributed step's loss or gradients differ")
+    _check(out["train_close"] and out["train_loss_bitwise"],
+           "the distributed step's loss or gradients differ, compiled or eager")
 
 
 def main():

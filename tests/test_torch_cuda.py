@@ -1560,3 +1560,86 @@ def test_fit_with_sgd_on_card(dev):
     eager = [float(step(params, opt, scene, sky, target, k)[2]) for k in range(3)]
     assert losses[0] == eager[0] and losses[2] < losses[0] and len(seen) == 3
     assert not torch.equal(seen[0], seen[2])
+
+
+# ---- the compiled sharded training step
+
+
+@pytest.mark.gpu
+def test_compiled_sharded_train_step_on_card(dev):
+    """make_sharded_train_step compiled against its eager form over a
+    virtual 2x2 mesh of the card at 128^2 x 2 spp x d8 (demo_scene(0), kd
+    and emission, Adam): at each of three steps the compiled step's loss
+    bit for bit the eager step's from the same parameters and state, its
+    .grad held to three eager runs from them by _held_to_eager, a replay's
+    launches those of an eager step; the first call captures the count,
+    the card's body, the reduce and the update (four graphs), later steps
+    none; graphs.clear() releases them."""
+    import copy
+
+    from cpppathtracer_tpu_torch.inverse import InverseConfig, make_sharded_train_step
+    from cpppathtracer_tpu_torch.parallel.mesh import make_tile_mesh
+
+    scene, cam, sky = _serving_scene(dev, "demo", size=128)
+    mesh = make_tile_mesh([dev] * 4, shape=(2, 2))
+    cfg = InverseConfig(spp=2, max_depth=8, fields=("kd", "emission"))
+    init, step = make_sharded_train_step(mesh, cam, cfg)
+    _, eager = make_sharded_train_step(mesh, cam, cfg, eager=True)
+    params, opt, pix, tgt = init(scene, _target_of(scene, cam, sky))
+    for k in range(3):
+        losses, runs = [], []
+        for _ in range(3):
+            p, o = copy.deepcopy((params, opt))
+            kb.reset_launches()
+            losses.append(eager(p, o, scene, sky, pix, tgt)[2])
+            torch.cuda.synchronize()
+            runs.append({f: p[f].grad for f in cfg.fields})
+        want = dict(kb.LAUNCHES)
+        kb.reset_launches()
+        params, opt, loss = step(params, opt, scene, sky, pix, tgt)
+        torch.cuda.synchronize()
+        assert all(torch.equal(loss.view(torch.int32), x.view(torch.int32)) for x in losses), k
+        got = {f: params[f].grad for f in cfg.fields}
+        assert _held_to_eager(got, runs), [{f: _rel(got[f], r[f]) for f in got} for r in runs]
+        assert k == 0 or dict(kb.LAUNCHES) == want, (k, dict(kb.LAUNCHES), want)
+        assert want["mega_bwd"] == 4 * cfg.spp and step.graphs.captures == 4
+    step.graphs.clear()
+    assert step.graphs.keys() == []
+
+
+@pytest.mark.gpu
+def test_compiled_sharded_train_step_across_cards(dev):
+    """With two cards or more: make_sharded_train_step over a 2x2 mesh of
+    cuda:0 and cuda:1 at 128^2 x 2 spp x d8 (a body on each card, their
+    sums and gradients copied to cuda:0 between the replays) against its
+    eager form from the same parameters and state, for two steps: the loss
+    bit for bit, the gradients held to three eager runs, five captures
+    (two bodies, the count, reduce and update), none at the second step."""
+    import copy
+
+    from cpppathtracer_tpu_torch.inverse import InverseConfig, make_sharded_train_step
+    from cpppathtracer_tpu_torch.parallel.mesh import make_tile_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card")
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    scene, cam, sky = _serving_scene(cards[0], "demo", size=128)
+    mesh = make_tile_mesh([cards[0], cards[1], cards[1], cards[0]], shape=(2, 2))
+    cfg = InverseConfig(spp=2, max_depth=8, fields=("kd", "emission"))
+    init, step = make_sharded_train_step(mesh, cam, cfg)
+    _, eager = make_sharded_train_step(mesh, cam, cfg, eager=True)
+    params, opt, pix, tgt = init(scene, _target_of(scene, cam, sky))
+    for k in range(2):
+        losses, runs = [], []
+        for _ in range(3):
+            p, o = copy.deepcopy((params, opt))
+            losses.append(eager(p, o, scene, sky, pix, tgt)[2])
+            runs.append({f: p[f].grad for f in cfg.fields})
+        params, opt, loss = step(params, opt, scene, sky, pix, tgt)
+        for c in cards:
+            torch.cuda.synchronize(c)
+        assert all(torch.equal(loss.view(torch.int32), x.view(torch.int32)) for x in losses), k
+        got = {f: params[f].grad for f in cfg.fields}
+        assert _held_to_eager(got, runs), [{f: _rel(got[f], r[f]) for f in got} for r in runs]
+        assert step.graphs.captures == 5
+    step.graphs.clear()

@@ -135,7 +135,9 @@ def test_scaling_harness_on_cpu(tmp_path):
     """n = 1, 2 in both modes (8^2 tiles, 1 spp, d2; the procs mode two
     gloo processes): one stdout line, the rows' keys, efficiency 1.0 at
     n = 1 in each mode, every row's check against the one-device step
-    passed; SCALING_r4.json and SCALING_r5.json unchanged."""
+    passed, eager and compiled (on the CPU make_sharded_value_and_grad's
+    call is the eager step, its loss the eager loss bit for bit);
+    SCALING_r4.json and SCALING_r5.json unchanged."""
     jax_files = {f: (REPO / f).read_bytes() for f in ("SCALING_r4.json", "SCALING_r5.json")}
     out = tmp_path / "scaling.json"
     summary = _one_line(_run(["scripts/torch_bench_scaling.py", "--device", "cpu", "--counts",
@@ -158,6 +160,13 @@ def test_scaling_harness_on_cpu(tmp_path):
         assert r["comm_bytes"] == 93 * (3 + 1) * 4  # kd f32[93, 3] and emission f32[93]
         if r["n_devices"] == 1:
             assert r["efficiency"] == 1.0
+        c = r["compiled"]
+        assert set(c) == {"first_s", "step_s", "busy_ms", "check", "loss_bitwise", "rays_per_s",
+                          "efficiency"}, c
+        assert c["check"]["ok"] and c["loss_bitwise"] and c["busy_ms"] is None
+        assert c["step_s"] > 0 and c["first_s"] > 0
+        assert c["efficiency"] == 1.0 or r["n_devices"] != 1
+    assert [s["eff_compiled"] for s in summary["scaling"]][0::2] == [1.0, 1.0]
     procs = [r for r in res["rows"] if r["mode"] == "procs"]
     assert all(r["backend"] == "gloo" for r in procs)
     # the same 8x8 image in both modes at n = 1
@@ -179,6 +188,25 @@ def test_scaling_harness_rank_past_its_limit_shows_its_stacks(tmp_path):
     assert proc.returncode != 0 and proc.stdout == "" and not out.exists()
     assert "Timeout" in proc.stderr and "rank_main" in proc.stderr
     assert "rank exit codes [1]" in proc.stderr
+
+
+def test_mesh_cards_processes_on_cpu(tmp_path):
+    """scripts/torch_mesh_cards.py's second part as its docstring runs it
+    on the CPU (two gloo processes, 32^2): the gathered frame bitwise the
+    unsharded render, and make_sharded_train_step's eager and compiled
+    forms (on the CPU the compiled call is the eager step) held to the
+    single device's loss and gradients, the losses bit for bit, each
+    form's step timed."""
+    proc = _run(["scripts/torch_mesh_cards.py", "--device", "cpu", "--procs", "2", "--size",
+                 "32", "--spp", "1", "--reps", "1"], tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    head, line = proc.stdout.splitlines()
+    assert head.startswith("[mesh] cpu")
+    out = json.loads(line)
+    assert out["part"] == "2 processes" and out["backend"] == "gloo" and out["bitwise"]
+    assert out["train_close"] and out["train_loss_bitwise"]
+    assert all(out[k] > 0 for k in ("train_step_ms", "train_step_compiled_ms",
+                                    "train_first_compiled_ms"))
 
 
 def test_sharded_loss_matches_jax_over_two_devices():

@@ -316,6 +316,21 @@ def test_two_ranks_train_step_matches_one_process(tmp_path):
     """The distributed sharded train step: the all-reduced loss and
     gradients equal the one-process step's within rtol 1e-5 / 1e-4."""
     _run_ranks(workers.train_rank, tmp_path)
+    _matches_one_process_step(tmp_path)
+
+
+def test_two_ranks_compiled_train_step_matches_one_process(tmp_path):
+    """The compiled sharded train step's bookkeeping in two ranks (each
+    graph's body run by the test stand-in for the capture; n, the loss and
+    the gradients all-reduced between the replays): the loss and gradients
+    equal the one-process step's within rtol 1e-5 / 1e-4."""
+    _run_ranks(workers.compiled_train_rank, tmp_path)
+    _matches_one_process_step(tmp_path)
+
+
+def _matches_one_process_step(tmp_path):
+    """The loss and gradients rank 0 saved against the one-process step's
+    over a 4-tile mesh, within rtol 1e-5 / 1e-4."""
     scene, cam, sky = workers.scene_camera_sky()
     cfg = InverseConfig(spp=1, max_depth=2, fields=("kd", "emission"))
     init, step = make_sharded_train_step(make_tile_mesh([CPU] * 4), cam, cfg)

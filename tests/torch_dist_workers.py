@@ -60,17 +60,29 @@ def render_rank(rank, world, rendezvous, out_dir):
         distributed.shutdown()
 
 
-def train_rank(rank, world, rendezvous, out_dir):
+def train_rank(rank, world, rendezvous, out_dir, compiled=False):
     """One distributed sharded train step (fields kd and emission) over a
-    2-tile CPU mesh per rank; rank 0 saves the loss and the gradients."""
-    from cpppathtracer_tpu_torch.inverse import InverseConfig, make_sharded_train_step
+    2-tile CPU mesh per rank; rank 0 saves the loss and the gradients.
+    `compiled`: the compiled step's bookkeeping
+    (``inverse.sharded_train_step_graphed``) through the test stand-in
+    for the capture, which runs each graph's body."""
+    from cpppathtracer_tpu_torch.inverse import (
+        InverseConfig, make_sharded_train_step, sharded_train_step_graphed,
+    )
     from cpppathtracer_tpu_torch.parallel.mesh import make_tile_mesh
+    from cpppathtracer_tpu_torch.utils.graphs import GraphedCall
+
+    from torch_run_body import RunBody
 
     distributed = _join(rank, world, rendezvous)
     try:
         scene, cam, sky = scene_camera_sky()
         cfg = InverseConfig(spp=1, max_depth=2, fields=("kd", "emission"))
-        init, step = make_sharded_train_step(make_tile_mesh(["cpu"] * 2), cam, cfg)
+        mesh = make_tile_mesh(["cpu"] * 2)
+        init, step = make_sharded_train_step(mesh, cam, cfg)
+        if compiled:
+            runner = GraphedCall(backend=RunBody())
+            step = lambda *args: sharded_train_step_graphed(runner, mesh, cam, cfg, *args)
         params, opt, pix, tgt = init(scene, np.full((cam.height * cam.width, 3), 0.3, np.float32))
         params, opt, loss = step(params, opt, scene, sky, pix, tgt)
         if rank == 0:
@@ -79,3 +91,8 @@ def train_rank(rank, world, rendezvous, out_dir):
                 np.save(os.path.join(out_dir, f"grad_{k}.npy"), v.grad.numpy())
     finally:
         distributed.shutdown()
+
+
+def compiled_train_rank(rank, world, rendezvous, out_dir):
+    """train_rank through the compiled step's bookkeeping."""
+    train_rank(rank, world, rendezvous, out_dir, compiled=True)

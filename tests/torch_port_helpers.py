@@ -7,7 +7,8 @@ import numpy as np
 from cpppathtracer_tpu.models.scene import SceneBuilder
 from cpppathtracer_tpu.types import MaterialType
 from cpppathtracer_tpu_torch import convert
-from cpppathtracer_tpu_torch.ops.cuda import build as kb
+
+from torch_run_body import Replay, RunBody  # noqa: F401  (the tests import them from here)
 
 
 def port_scene(scene):
@@ -39,45 +40,3 @@ def controlled_scene(pad_to=None):
     b.add_cylinder((-4.5, 1.5, 0.0), 1.2, 3.0, mat_type=MaterialType.GLASS, ior=1.5)
     b.add_sphere((2.0, 1.0, -3.0), 1.0, kd=(1.0, 0.9, 0.7), emission=2.0)
     return b.build(pad_to=pad_to)
-
-
-class RunBody:
-    """Stand-in for ``graphs.CudaGraphs``: a capture runs the body once (as
-    ``torch.cuda.graph`` runs it while recording) and its replay runs it
-    again with ``build.LAUNCHES`` put back afterwards, since a replay runs
-    no Python.  It counts what it was asked to do."""
-
-    def __init__(self):
-        self.warmups = self.captured = self.replays = self.released = 0
-        self.devices = set()
-
-    def pool(self):
-        return None
-
-    def warmup(self, bodies, device):
-        for body in bodies:
-            body()
-        self.warmups += len(bodies)
-        self.devices.add(device)
-
-    def capture(self, body, pool, device):
-        body()
-        self.captured += 1
-        self.devices.add(device)
-        return Replay(self, body)
-
-
-class Replay:
-    """A stand-in's captured graph: a replay runs the body."""
-
-    def __init__(self, backend, body):
-        self.backend, self.body = backend, body
-
-    def replay(self):
-        saved = dict(kb.LAUNCHES)
-        self.body()
-        kb.LAUNCHES.update(saved)
-        self.backend.replays += 1
-
-    def reset(self):
-        self.backend.released += 1
