@@ -35,6 +35,7 @@ import time
 import torch
 
 from cpppathtracer_tpu_torch.types import resolve_device
+from cpppathtracer_tpu_torch.utils import obs
 from cpppathtracer_tpu_torch.utils.graphs import (
     Entry,
     GraphedCall,
@@ -99,9 +100,10 @@ def train_step_graphed(runner: GraphedCall, scene, camera, sky, spp, max_depth, 
     """:func:`train_step_jit`'s body on the graphs of `runner` (its capture
     backend decides what a capture is)."""
     inputs = (scene, camera, sky, tex_stack)
-    key = bench_key(scene, camera, sky, spp, max_depth, tex_stack)
-    e = runner.entry(key, lambda r: _capture_bench(r, inputs, spp, max_depth))
-    copy_into(e.inputs, inputs)
+    e = runner.entry(lambda: bench_key(scene, camera, sky, spp, max_depth, tex_stack),
+                     lambda r: _capture_bench(r, inputs, spp, max_depth))
+    with obs.span("graphs.copy_in") as sp:
+        copy_into(e.inputs, inputs, sp)
     e.graphs[0].replay()
     loss, grads = e.out
     return loss.clone(), {k: g.clone() for k, g in grads.items()}

@@ -55,6 +55,7 @@ from cpppathtracer_tpu_torch.ops.mathx import div_const
 from cpppathtracer_tpu_torch.ops.mega import mega_sample
 from cpppathtracer_tpu_torch.ops.uv import surface_uv, surface_uv_p
 from cpppathtracer_tpu_torch.types import INF, TMIN_BOUNCE, Rays
+from cpppathtracer_tpu_torch.utils import obs
 from cpppathtracer_tpu_torch.utils.graphs import (
     Entry,
     GraphedCall,
@@ -552,27 +553,32 @@ def render_replay(runner: GraphedCall, scene, camera, sky_tex, *, spp: int, max_
     static buffers and returns the body of one more graph, replayed after
     the chunks, that reads the entry's buffers (``video.render_video``'s
     denoise and pack); `name` goes into the key."""
-    _check_devices(scene, camera, sky_tex, tex_stack)
-    inputs = (scene, camera, sky_tex, tex_stack, pixel_idx)
-    if torch.is_grad_enabled() and requires_grad(*inputs):
-        raise ValueError(
-            "render_radiance_jit serves frames and takes no inputs that require grad: train "
-            "through inverse.make_train_step or bench.train_step_jit (compiled on the card), or "
-            "call render_radiance, or wrap the call in torch.no_grad()"
-        )
-    chunk = _spp_chunk(spp, spp_chunk)
-    key = render_key(scene, camera, sky_tex, spp=spp, max_depth=max_depth, pixel_idx=pixel_idx,
-                     tex_stack=tex_stack, spp_chunk=spp_chunk)
-    if tail is not None:
-        key = key + (tail[0],)
-    e = runner.entry(key, lambda r: _capture_render(r, inputs, spp // chunk, chunk, max_depth,
-                                                    tail and tail[1]))
-    copy_into(e.inputs, inputs)
-    e.key.fill_(sample_offset)
-    write_seed(e.seed, seed)
-    for g in e.order:
-        g.replay()
-    return e
+    with obs.span("render.call") as call:
+        _check_devices(scene, camera, sky_tex, tex_stack)
+        inputs = (scene, camera, sky_tex, tex_stack, pixel_idx)
+        if torch.is_grad_enabled() and requires_grad(*inputs):
+            raise ValueError(
+                "render_radiance_jit serves frames and takes no inputs that require grad: train "
+                "through inverse.make_train_step or bench.train_step_jit (compiled on the card), "
+                "or call render_radiance, or wrap the call in torch.no_grad()"
+            )
+        chunk = _spp_chunk(spp, spp_chunk)
+
+        def key():
+            k = render_key(scene, camera, sky_tex, spp=spp, max_depth=max_depth,
+                           pixel_idx=pixel_idx, tex_stack=tex_stack, spp_chunk=spp_chunk)
+            return k if tail is None else k + (tail[0],)
+
+        e = runner.entry(key, lambda r: _capture_render(r, inputs, spp // chunk, chunk,
+                                                        max_depth, tail and tail[1]))
+        with obs.span("graphs.copy_in") as sp:
+            copy_into(e.inputs, inputs, sp)
+            e.key.fill_(sample_offset)
+            write_seed(e.seed, seed)
+        for g in e.order:
+            g.replay()
+        call.count("replays", len(e.order))
+        return e
 
 
 def _capture_render(runner, inputs, n_chunks: int, chunk: int, max_depth: int, tail=None):

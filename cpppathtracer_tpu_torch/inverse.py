@@ -37,6 +37,7 @@ from cpppathtracer_tpu_torch.parallel.render import (
     replay_sharded_grad,
     sharded_grad_key,
 )
+from cpppathtracer_tpu_torch.utils import obs
 from cpppathtracer_tpu_torch.utils.graphs import (
     Entry,
     GraphedCall,
@@ -224,14 +225,16 @@ def train_step_graphed(runner: GraphedCall, camera, cfg: InverseConfig, params, 
     a runner's entries take one optimizer (the key does not name it).
     Returns (params, opt, loss)."""
     optimizer = optimizer or adam(cfg.learning_rate)
-    key = train_key(camera, cfg, params, opt, scene, sky_tex, target)
-    inputs = (scene, sky_tex, target, camera)
-    e = runner.entry(key, lambda r: _capture_train(r, cfg, optimizer, params, opt, inputs))
-    copy_into((e.params, e.opt, e.inputs), (params, opt, inputs))
-    e.key.fill_(_offset(cfg, step))
-    e.graphs[0].replay()
-    copy_into((params, opt), (e.params, e.opt))
-    return params, opt, e.loss.clone()
+    with obs.span("train.step"):
+        inputs = (scene, sky_tex, target, camera)
+        e = runner.entry(lambda: train_key(camera, cfg, params, opt, scene, sky_tex, target),
+                         lambda r: _capture_train(r, cfg, optimizer, params, opt, inputs))
+        with obs.span("graphs.copy_in") as sp:
+            copy_into((e.params, e.opt, e.inputs), (params, opt, inputs), sp)
+            e.key.fill_(_offset(cfg, step))
+        e.graphs[0].replay()
+        copy_into((params, opt), (e.params, e.opt))
+        return params, opt, e.loss.clone()
 
 
 def _capture_train(runner, cfg: InverseConfig, optimizer: Optimizer, params, opt, inputs):
@@ -375,21 +378,24 @@ def sharded_train_step_graphed(runner: GraphedCall, mesh, camera, cfg: InverseCo
     and so the one code path serves NCCL on the cards and gloo, which
     cannot be captured, on the CPU."""
     optimizer = optimizer or adam(cfg.learning_rate)
-    inputs = (scene, camera, sky_tex, pix, target)
-    key = sharded_train_key(mesh, camera, cfg, params, opt, scene, sky_tex, pix, target)
-    e = runner.entry(key, lambda r: _capture_sharded_train(r, mesh, cfg, optimizer, params, opt,
-                                                           inputs))
-    copy_into(e.opt, opt)
-    replay_sharded_grad(e, params, inputs)
-    if world()[0] > 1:
-        dist.all_reduce(e.loss)
-        for g in e.grads.values():
-            dist.all_reduce(g)
-    e.update.replay()
-    copy_into((params, opt), (e.params[e.first], e.opt))
-    for k, p in params.items():
-        p.grad = e.grads[k].clone()
-    return params, opt, e.loss.clone()
+    with obs.span("mesh.step"):
+        inputs = (scene, camera, sky_tex, pix, target)
+        e = runner.entry(
+            lambda: sharded_train_key(mesh, camera, cfg, params, opt, scene, sky_tex, pix, target),
+            lambda r: _capture_sharded_train(r, mesh, cfg, optimizer, params, opt, inputs))
+        with obs.span("graphs.copy_in") as sp:
+            copy_into(e.opt, opt, sp)
+        replay_sharded_grad(e, params, inputs)
+        if world()[0] > 1:
+            with obs.span("mesh.exchange") as sp:
+                for t in (e.loss, *e.grads.values()):
+                    dist.all_reduce(t)
+                    sp.count("bytes", t.nbytes)
+        e.update.replay()
+        copy_into((params, opt), (e.params[e.first], e.opt))
+        for k, p in params.items():
+            p.grad = e.grads[k].clone()
+        return params, opt, e.loss.clone()
 
 
 def _capture_sharded_train(runner, mesh, cfg: InverseConfig, optimizer: Optimizer, params, opt,

@@ -47,6 +47,7 @@ import torch.distributed as dist
 from cpppathtracer_tpu_torch.integrator import render_graphed, render_radiance
 from cpppathtracer_tpu_torch.parallel.distributed import process_rows, world
 from cpppathtracer_tpu_torch.parallel.mesh import TileMesh, pad_to_tiles
+from cpppathtracer_tpu_torch.utils import obs
 from cpppathtracer_tpu_torch.utils.graphs import (
     Entry,
     GraphedCall,
@@ -265,9 +266,8 @@ def sharded_grad_graphed(runner: GraphedCall, mesh: TileMesh, spp, max_depth, se
     gradient}), copies of the graphs' buffers on the mesh's first
     device."""
     inputs = (scene, camera, sky_tex, pix, target)
-    key = sharded_grad_key(mesh, spp, max_depth, seed, params, inputs)
-    e = runner.entry(key, lambda r: capture_sharded_grad(r, mesh, spp, max_depth, seed, params,
-                                                         inputs))
+    e = runner.entry(lambda: sharded_grad_key(mesh, spp, max_depth, seed, params, inputs),
+                     lambda r: capture_sharded_grad(r, mesh, spp, max_depth, seed, params, inputs))
     replay_sharded_grad(e, params, inputs)
     return e.loss.clone(), {k: g.clone() for k, g in e.grads.items()}
 
@@ -364,23 +364,33 @@ def replay_sharded_grad(e: Entry, params, inputs):
     in a group of several) until the entry's next replay.  All the copies
     into the devices go ahead of the devices' bodies: a copy from the
     first device runs on its stream, which would otherwise hold it behind
-    the first device's own body, and the devices would take turns."""
+    the first device's own body, and the devices would take turns.  The
+    copies across devices and the all-reduce of n are ``mesh.exchange``
+    spans (`bytes`), the reduce's replay a ``mesh.reduce`` span."""
     scene, camera, sky_tex, pix, target = inputs
-    copy_into((e.pix, e.target), (pix, target))
+    with obs.span("graphs.copy_in") as sp:
+        copy_into((e.pix, e.target), (pix, target), sp)
+        for d in e.devices:
+            copy_into((e.params[d], e.inputs[d]), (params, (scene, camera, sky_tex)), sp)
     e.count.replay()
-    if world()[0] > 1:
-        dist.all_reduce(e.n)
-    for d in e.devices:
-        copy_into((e.params[d], e.inputs[d]), (params, (scene, camera, sky_tex)))
-        if d != e.first:
-            e.n_on[d].copy_(e.n)
-    for (dev, ys, xs), (pix_t, target_t) in zip(e.tiles, e.tile_in):
-        if dev != e.first:
-            pix_t.copy_(e.pix[ys, xs])
-            target_t.copy_(e.target[ys, xs])
+    with obs.span("mesh.exchange") as sp:
+        if world()[0] > 1:
+            dist.all_reduce(e.n)
+        for d in e.devices:
+            if d != e.first:
+                e.n_on[d].copy_(e.n)
+                sp.count("bytes", e.n.nbytes)
+        for (dev, ys, xs), (pix_t, target_t) in zip(e.tiles, e.tile_in):
+            if dev != e.first:
+                pix_t.copy_(e.pix[ys, xs])
+                target_t.copy_(e.target[ys, xs])
+                sp.count("bytes", pix_t.nbytes + target_t.nbytes)
     for d in e.devices:
         e.bodies[d].replay()
-    for d in e.devices:
-        if d != e.first:
-            e.landed[d].copy_(e.flat[d])
-    e.reduce.replay()
+    with obs.span("mesh.exchange") as sp:
+        for d in e.devices:
+            if d != e.first:
+                e.landed[d].copy_(e.flat[d])
+                sp.count("bytes", e.flat[d].nbytes)
+    with obs.span("mesh.reduce"):
+        e.reduce.replay()

@@ -24,6 +24,7 @@ import torch
 from cpppathtracer_tpu_torch.integrator import render_radiance
 from cpppathtracer_tpu_torch.ops.cuda.denoise_kernel import denoise
 from cpppathtracer_tpu_torch.types import MAX_RECURSION_DEPTH_SET
+from cpppathtracer_tpu_torch.utils import obs
 from cpppathtracer_tpu_torch.utils.graphs import (
     Entry,
     GraphedCall,
@@ -147,8 +148,9 @@ class ProgressiveRenderer:
     def move_camera(self, fn, *args, **kw):
         """Apply a camera motion op (e.g. `Camera.move_forward`) and restart
         accumulation."""
-        self.camera = fn(self.camera, *args, **kw)
-        self.state = self.state.refresh()
+        with obs.span("viewer.move"):
+            self.camera = fn(self.camera, *args, **kw)
+            self.state = self.state.refresh()
 
     def resize(self, width: int, height: int):
         self.camera = self.camera.resize(width, height)
@@ -186,19 +188,19 @@ class ProgressiveRenderer:
         seed from the config, and it replays.  Afterwards ``state.mix`` is
         the graph's mix buffer, which the next step overwrites; the image
         returned is a copy."""
-        cfg = self.config
-        inputs = (self.scene, self.camera, self.sky_tex)
-        e = self.graphs.entry(self.frame_key(), lambda r: _capture_frame(r, inputs, cfg))
-        copy_into(e.inputs, inputs)
-        if self.state.mix is not e.mix:
-            e.mix.copy_(self.state.mix)
-        new_idx = self.state.sample_idx + 1
-        e.key.fill_(self.state.sample_idx * cfg.spp_per_frame)
-        e.div.fill_(float(new_idx))
-        write_seed(e.seed, cfg.seed)
-        e.graphs[0].replay()
-        self.state = AccumulatorState(mix=e.mix, sample_idx=new_idx)
-        return e.mix.clone()
+        with obs.span("viewer.frame"):
+            cfg = self.config
+            inputs = (self.scene, self.camera, self.sky_tex)
+            e = self.graphs.entry(self.frame_key, lambda r: _capture_frame(r, inputs, cfg))
+            new_idx = self.state.sample_idx + 1
+            with obs.span("graphs.copy_in") as sp:
+                copy_into((e.inputs, e.mix), (inputs, self.state.mix), sp)
+                e.key.fill_(self.state.sample_idx * cfg.spp_per_frame)
+                e.div.fill_(float(new_idx))
+                write_seed(e.seed, cfg.seed)
+            e.graphs[0].replay()
+            self.state = AccumulatorState(mix=e.mix, sample_idx=new_idx)
+            return e.mix.clone()
 
     def frame(self) -> np.ndarray:
         """The accumulated frame as float RGB [H,W,3] (waits for the device)."""

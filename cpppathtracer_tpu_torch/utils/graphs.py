@@ -31,6 +31,12 @@ Its design:
   run: each :class:`Graph` records how far ``build.LAUNCHES`` moved while
   it was captured, undoes that (nothing was launched), and adds it back at
   every replay.
+- The host's work around a replay is traced by spans (``utils/obs.py``,
+  recorded while a ``torch.profiler`` profile runs): ``graphs.entry``
+  (the key and the lookup, `hit` 0 or 1), ``graphs.capture`` (warm-up and
+  capture, `bodies`), ``graphs.copy_in`` (the copies into the buffers and
+  the writes beside them, `tensors` and `bytes`, opened by the caller)
+  and ``graphs.replay`` (`card`).  No span lies inside a body.
 - A capture that fails raises.  Nothing falls back to the eager bodies:
   a caller that wants eager work calls the eager function
   (``integrator.render_radiance``, ``renderer.frame_step``,
@@ -55,6 +61,7 @@ import os
 import torch
 
 from cpppathtracer_tpu_torch.ops.cuda import build as kb
+from cpppathtracer_tpu_torch.utils import obs
 
 
 def signature(obj):
@@ -110,14 +117,19 @@ def static_twin(obj):
     return map_tensors(obj, lambda t: t.detach().clone())
 
 
-def copy_into(static, current):
+def copy_into(static, current, span=obs.OFF):
     """Copy every tensor of `current` into its place in `static` (the same
     structure, as :func:`signature` says); a tensor that is its own static
-    buffer is left alone."""
+    buffer is left alone.  `span`, an open ``graphs.copy_in`` span, counts
+    the tensors copied and their bytes."""
+    counting = span.on
     with torch.no_grad():  # a buffer takes values, never an autograd history
         for dst, src in zip(tensors(static), tensors(current), strict=True):
             if dst is not src:
                 dst.copy_(src)
+                if counting:
+                    span.count("tensors")
+                    span.count("bytes", dst.nbytes)
 
 
 def requires_grad(*objs) -> bool:
@@ -193,6 +205,7 @@ class Graph:
 
     def __init__(self, backend, body, pool, device):
         self._body = body
+        self.card = torch.device(device).index or 0
         before = dict(kb.LAUNCHES)
         try:
             self._graph = backend.capture(body, pool, device)
@@ -202,7 +215,8 @@ class Graph:
         self.launches = {k: n - before[k] for k, n in after.items() if n != before[k]}
 
     def replay(self):
-        self._graph.replay()
+        with obs.span("graphs.replay", card=self.card):
+            self._graph.replay()
         for k, n in self.launches.items():
             kb.LAUNCHES[k] += n
 
@@ -223,10 +237,11 @@ class Entry:
 class GraphedCall:
     """A bounded cache of captured entries, keyed by what they bake in.
 
-    ``entry(key, build)`` returns the entry of `key`, or makes one with
-    ``build(self)``, which sets up its static buffers and calls
-    :meth:`capture` with its bodies; past `max_entries` the least recently
-    used entry is released.  `captures` counts the bodies captured so far."""
+    ``entry(key, build)`` returns the entry of the key ``key()`` gives, or
+    makes one with ``build(self)``, which sets up its static buffers and
+    calls :meth:`capture` with its bodies; past `max_entries` the least
+    recently used entry is released.  `captures` counts the bodies
+    captured so far."""
 
     def __init__(self, max_entries: int = 4, backend=None):
         self.max_entries = max_entries
@@ -236,30 +251,35 @@ class GraphedCall:
         self._building: list | None = None
 
     def entry(self, key, build):
-        if key in self._entries:
-            self._entries.move_to_end(key)
-            return self._entries[key][0]
-        self._building = []
-        try:
-            made = build(self)
-        except BaseException:
-            self._release(self._building)
-            raise
-        finally:
-            graphs, self._building = self._building, None
-        self._entries[key] = (made, graphs)
-        while len(self._entries) > self.max_entries:
-            self._release(self._entries.popitem(last=False)[1][1])
-        return made
+        with obs.span("graphs.entry") as sp:
+            key = key()  # the key's computation is part of every call's host time
+            hit = key in self._entries
+            sp.count("hit", int(hit))
+            if hit:
+                self._entries.move_to_end(key)
+                return self._entries[key][0]
+            self._building = []
+            try:
+                made = build(self)
+            except BaseException:
+                self._release(self._building)
+                raise
+            finally:
+                graphs, self._building = self._building, None
+            self._entries[key] = (made, graphs)
+            while len(self._entries) > self.max_entries:
+                self._release(self._entries.popitem(last=False)[1][1])
+            return made
 
     def capture(self, *bodies, device):
         """Warm each body up, then capture each, in order, into one pool,
         all on `device` (the device of the tensors the bodies work on): a
         list of :class:`Graph`.  A later body may read the tensors an
         earlier one made, provided every replay runs them in this order."""
-        self.backend.warmup(bodies, device)
-        pool = self.backend.pool()
-        graphs = [Graph(self.backend, body, pool, device) for body in bodies]
+        with obs.span("graphs.capture", bodies=len(bodies)):
+            self.backend.warmup(bodies, device)
+            pool = self.backend.pool()
+            graphs = [Graph(self.backend, body, pool, device) for body in bodies]
         self.captures += len(graphs)
         if self._building is not None:
             self._building.extend(graphs)

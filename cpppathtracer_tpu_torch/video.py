@@ -35,6 +35,7 @@ from cpppathtracer_tpu_torch.models.camera import Camera
 from cpppathtracer_tpu_torch.ops.cuda.denoise_kernel import denoise
 from cpppathtracer_tpu_torch.ops.mathx import div_const
 from cpppathtracer_tpu_torch.parallel.render import render_tiles, tile_graphs
+from cpppathtracer_tpu_torch.utils import obs
 from cpppathtracer_tpu_torch.utils.graphs import Entry, GraphedCall, copy_into, signature, static_twin
 from cpppathtracer_tpu_torch.utils.png import write_png
 
@@ -246,7 +247,8 @@ def _pack_graphed(runner, rad, n0, t0, use_denoise):
         e.graphs = r.capture(body, device=rad.device)
         return e
 
-    e = runner.entry(("pack", signature(inputs), use_denoise), build)
-    copy_into(e.inputs, inputs)
+    e = runner.entry(lambda: ("pack", signature(inputs), use_denoise), build)
+    with obs.span("graphs.copy_in") as sp:
+        copy_into(e.inputs, inputs, sp)
     e.graphs[0].replay()
     return e.rgb8.clone()

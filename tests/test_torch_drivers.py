@@ -363,7 +363,7 @@ def test_cli_defaults_to_the_card():
 
 
 def test_obs_timer_meter_metrics_and_trace(tmp_path):
-    from cpppathtracer_tpu_torch.utils.obs import MetricsLog, RaysPerSecond, Timer, profiler_trace
+    from cpppathtracer_tpu_torch.utils.obs import MetricsLog, RaysPerSecond, Timer
 
     sink = {}
     with Timer.phase("work", sink) as ph:
@@ -375,6 +375,3 @@ def test_obs_timer_meter_metrics_and_trace(tmp_path):
     metrics = MetricsLog(str(tmp_path / "m" / "metrics.jsonl"))
     metrics.log(step=0, loss=1.5)
     assert json.loads((tmp_path / "m" / "metrics.jsonl").read_text())["loss"] == 1.5
-    with profiler_trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    assert json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]

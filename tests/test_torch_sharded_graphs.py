@@ -277,6 +277,45 @@ def test_two_distinct_devices_take_a_body_each():
     assert runner.captures == 5 and backend.devices == {torch.device(CPU), torch.device("cpu:0")}
 
 
+def test_sharded_step_spans_share_its_call():
+    """Under a profiler a compiled step over two distinct devices records
+    one `mesh.step` whose call id every span inside it shares: the entry
+    (a hit once captured), the copies in, the exchange across devices (the
+    count's copy and the other device's tiles going out, its flat results
+    coming back, their bytes counted) and the reduce's replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpppathtracer_tpu_torch.utils import obs
+
+    mesh = _mesh((2, 2), [CPU, "cpu:0", "cpu:0", CPU])
+    cfg = InverseConfig(spp=1, max_depth=2, fields=FIELDS)
+    scene, cam, sky, _, _, (params, opt), pix, tgt = _setup(mesh, cfg)
+    runner = GraphedCall(backend=RunBody())
+    sharded_train_step_graphed(runner, mesh, cam, cfg, params, opt, scene, sky, pix, tgt)
+    e = runner[runner.keys()[0]]
+    obs.clear_spans()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            sharded_train_step_graphed(runner, mesh, cam, cfg, params, opt, scene, sky, pix, tgt)
+        recs = obs.spans()
+    finally:
+        obs.clear_spans()
+    assert recs[0]["name"] == "mesh.step" and recs[0]["parent"] == -1
+    assert all(r["call"] == recs[0]["call"] and r["parent"] != -1 for r in recs[1:])
+    names = [r["name"] for r in recs if r["parent"] == 0]
+    assert names == ["graphs.entry", "graphs.copy_in", "graphs.copy_in", "graphs.replay",
+                     "mesh.exchange", "graphs.replay", "graphs.replay", "mesh.exchange",
+                     "mesh.reduce", "graphs.replay"]
+    assert recs[1]["counts"] == {"hit": 1}
+    other = torch.device("cpu:0")
+    tiles = [t for (dev, _, _), t in zip(e.tiles, e.tile_in) if dev == other]
+    assert [r["counts"]["bytes"] for r in recs if r["name"] == "mesh.exchange"] == [
+        e.n.nbytes + sum(p.nbytes + t.nbytes for p, t in tiles), e.flat[other].nbytes]
+    (reduce,) = [r for r in recs if r["name"] == "mesh.reduce"]
+    assert [r["name"] for r in recs if recs[r["parent"]] is reduce] == ["graphs.replay"]
+    assert sum(r["name"] == "graphs.replay" for r in recs) == 5
+
+
 def test_graphs_count_their_launches():
     """The launches each graph counted at capture (on the card the
     forward's and mega_bwd's; the CPU's plain versions count none, so they
