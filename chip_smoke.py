@@ -735,7 +735,8 @@ def textured_phase(dev, scene, camera, sky, trace_args, gs, k1, time_kernels, li
         dt = time.perf_counter() - t0
         launches = dict(kb.LAUNCHES)
         want = dict(kb.LAUNCHES, mega_trace=0, mega_trace_aux=2 * TEX_SPP, stream_compact=TEX_SPP,
-                    stream_expand=2 * TEX_SPP, mega_bwd=0, winner_index=0, bvh_winner_index=0)
+                    stream_expand=2 * TEX_SPP, mega_bwd=0, winner_index=0, bvh_winner_index=0,
+                    wavefront_bounce=0)
         if launches != want:
             raise AssertionError(f"the textured render launched {launches}, expected {want}")
         if not (torch.isfinite(rad).all() and rad.shape == (r, 3)):
@@ -951,8 +952,8 @@ def bvh_phase(dev, sky):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kb.LAUNCHES)
-    want = dict(kb.LAUNCHES, bvh_winner_index=BVH_SPP * DEPTH, mega_trace=0, mega_bwd=0,
-                winner_index=0, stream_compact=0, stream_expand=0)
+    want = dict(kb.LAUNCHES, bvh_winner_index=BVH_SPP * DEPTH, wavefront_bounce=BVH_SPP * DEPTH,
+                mega_trace=0, mega_bwd=0, winner_index=0, stream_compact=0, stream_expand=0)
     if launches != want:
         raise AssertionError(f"the BVH render launched {launches}, expected {want}")
     if not (torch.isfinite(rad).all() and rad.shape == (r, 3) and torch.isfinite(n0).all()):
@@ -998,8 +999,9 @@ def bvh_phase(dev, sky):
     dt_t = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     step_launches = dict(kb.LAUNCHES)
-    want = dict(kb.LAUNCHES, bvh_winner_index=WF_SPP * DEPTH, mega_trace=0, mega_trace_aux=0,
-                mega_bwd=0, winner_index=0, stream_compact=0, stream_expand=0)
+    want = dict(kb.LAUNCHES, bvh_winner_index=WF_SPP * DEPTH, wavefront_bounce=WF_SPP * DEPTH,
+                mega_trace=0, mega_trace_aux=0, mega_bwd=0, winner_index=0, stream_compact=0,
+                stream_expand=0)
     if step_launches != want:
         raise AssertionError(f"the BVH training step launched {step_launches}, expected {want}")
     for name, g in (("kd", g_kd), ("emission", g_em)):
@@ -1106,6 +1108,7 @@ def bvh_phase(dev, sky):
         f"{floor_w * 1e3:.4f} ms; plain {plain_w:.1f} ms; {geom4.shape[0]} rows in "
         f"{32 * geom4.shape[0]} bytes of shared memory a block; blocks of 1024 threads: "
         f"{describe_shape(shape_w, grid_w, r)}")
+    wave = wavefront_row(dev, gs, camera, launches["wavefront_bounce"])
     by = lambda o, b: "operations" if o > b else "bytes"
     return [
         dict(name="bvh_winner_index", route="cuda", source="cpppathtracer_tpu_torch/csrc/bvh.cu",
@@ -1118,7 +1121,91 @@ def bvh_phase(dev, sky):
              launches=dense_launches["winner_index"], max_abs_err=err_w, ms=ms_w, plain_ms=plain_w,
              bound_ms=max(ops_ws, bytes_ws) * 1e3, bound_by=by(ops_ws, bytes_ws), library_ms=None,
              registers=regs_w, local_bytes=local_w, blocks_per_sm=per_sm_w),
+        wave,
     ]
+
+
+# the least device memory one lane's bounce of csrc/wavefront.cu moves: the carry (o, d,
+# thru, rad) read and written (2 x 48 bytes), alive read and written (2), the winner, pix
+# and samp read (12); first_n and first_t (16) are written at bounce 0 only
+WAVE_LANE_BYTES, WAVE_FIRST_BYTES = 110, 16
+# its FP32 operations a lane-bounce: the bounce's share of #1's count (PERF.md §3)
+WAVE_LANE_OPS = 240
+
+
+def wavefront_row(dev, gs, camera, launches):
+    """The fused wavefront bounce (csrc/wavefront.cu) on every bounce of one
+    1024^2 sample of `gs` (big_scene(16384)): each bounce's planes kept from
+    the kernel's own loop, the kernel bitwise its plain version on each,
+    its time a bounce by CUDA events (each launch on a fresh copy of its
+    planes; the copies timed alone and taken off), the plain version's the
+    same way, its bound in bytes, registers and local bytes."""
+    from cpppathtracer_tpu_torch.ops.cuda import build as kb
+    from cpppathtracer_tpu_torch.ops.cuda.wavefront_kernel import (
+        carry_parts, field_major_tables, start_planes, wavefront_bounce, wavefront_bounce_plain,
+    )
+    from cpppathtracer_tpu_torch.ops.fast import closest_index
+    from cpppathtracer_tpu_torch.types import INF, TMIN_BOUNCE
+
+    r = W * H
+    pix = torch.arange(r, dtype=torch.int32, device=dev)
+    samp = torch.zeros(r, dtype=torch.int32, device=dev)
+    planes = start_planes(*camera.ray_gen_planar(pix, samp, 0))
+    o, d, _, _ = carry_parts(planes[0])
+    ts, trt = field_major_tables(gs.table_s, gs.table_r)
+    zero = torch.zeros(r, device=dev)
+    states = []
+    with torch.no_grad():
+        for b in range(DEPTH):
+            gidx = closest_index(gs, o, d, zero + (0.0 if b == 0 else TMIN_BOUNCE), zero + INF)
+            states.append((tuple(t.clone() for t in planes), gidx))
+            wavefront_bounce(*planes, gidx, pix, samp, 0, ts, trt, bounce=b)
+    alive = [float(st[1].float().mean()) for st, _ in states]
+    err = 0
+    for b, (st, gidx) in enumerate(states):
+        got, ref = [t.clone() for t in st], [t.clone() for t in st]
+        wavefront_bounce(*got, gidx, pix, samp, 0, ts, trt, bounce=b)
+        wavefront_bounce_plain(*ref, gidx, pix, samp, 0, ts, trt, bounce=b)
+        err += sum(int((x.view(torch.uint8) != y.view(torch.uint8)).sum()) for x, y in zip(got, ref))
+    log(f"[check] wavefront_bounce vs plain, the {DEPTH} bounces of one sample of "
+        f"big_scene({BVH_N}) at {W}x{H}: {err} bytes differ")
+    if err:
+        raise AssertionError("wavefront_bounce differs from its plain version on the sample's bounces")
+    work = [tuple(t.clone() for t in st) for st, _ in states]
+
+    def copies():
+        for (st, _), wk in zip(states, work):
+            for x, y in zip(wk, st):
+                x.copy_(y)
+
+    def run(fn):
+        def go():
+            for b, ((st, gidx), wk) in enumerate(zip(states, work)):
+                for x, y in zip(wk, st):
+                    x.copy_(y)
+                fn(*wk, gidx, pix, samp, 0, ts, trt, bounce=b)
+        return go
+
+    ms_copy = time_ms(copies, iters=10, warmup=2)
+    ms = (time_ms(run(wavefront_bounce), iters=10, warmup=2) - ms_copy) / DEPTH
+    plain = (time_ms(run(wavefront_bounce_plain), iters=3, warmup=1) - ms_copy) / DEPTH
+    table_bytes = ts.numel() * 4 + trt.numel() * 4
+    bytes_b = r * (WAVE_LANE_BYTES + WAVE_FIRST_BYTES / DEPTH) + table_bytes
+    bytes_s, ops_s = bytes_b / HBM_BYTES_PER_S, WAVE_LANE_OPS * r / FP32_OPS_PER_S
+    regs, local, per_sm, grid = kernel_info(kb.library().poca_wavefront_info, r, n=4)
+    log(f"[kernels] wavefront_bounce a bounce, {W}x{H} lanes of big_scene({BVH_N}) (mean of the "
+        f"{DEPTH} bounces of one sample): {ms:.4f} ms, bound {max(bytes_s, ops_s) * 1e3:.4f} ms "
+        f"({bytes_b / 1e6:.1f} MB {bytes_s * 1e3:.4f} ms; {WAVE_LANE_OPS * r:.4g} ops "
+        f"{ops_s * 1e3:.4f} ms), {100 * max(bytes_s, ops_s) * 1e3 / ms:.1f}% of it; plain "
+        f"{plain:.3f} ms; the copies of the {DEPTH} bounces' planes {ms_copy:.3f} ms taken off; "
+        f"{regs} registers, {local} local bytes a thread, {per_sm} blocks of 256 an SM, grid "
+        f"{grid} (the local bytes are a stack frame, whose spills the [ptxas] lines give); lanes "
+        f"alive at each bounce {[round(v, 4) for v in alive]}")
+    return dict(name="wavefront_bounce", route="cuda", source="cpppathtracer_tpu_torch/csrc/wavefront.cu",
+                replaces="cpppathtracer_tpu/integrator.py:101 (XLA's fused bounce body; no pallas_call)",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=max(bytes_s, ops_s) * 1e3, bound_by="bytes" if bytes_s > ops_s else "operations",
+                library_ms=None, registers=regs, local_bytes=local, blocks_per_sm=per_sm)
 
 
 def rowmajor_phase(dev, sky):
@@ -1946,7 +2033,7 @@ def bench_phase(dev, card, scene, camera, sky, step_ref):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     BENCH_GRAPHS.clear()
     want = dict(mega_trace=2 * SPP, mega_trace_aux=0, stream_compact=SPP, stream_expand=SPP,
-                mega_bwd=SPP, winner_index=0, bvh_winner_index=0, denoise=0)
+                mega_bwd=SPP, winner_index=0, bvh_winner_index=0, denoise=0, wavefront_bounce=0)
     same_loss = torch.equal(bits(loss), bits(step_ref[0]))
     rel = {k: float((g - r).norm() / r.norm()) for (k, g), r in zip(grads.items(), step_ref[1:])}
     same_g = {k: torch.equal(bits(g), bits(r)) for (k, g), r in zip(grads.items(), step_ref[1:])}
@@ -2098,7 +2185,8 @@ SFU_PER_S = 132 * 16 * 1.98e9
 KERNEL_OF = dict(mega_trace="mega_trace_kernel", mega_trace_aux="mega_trace_kernel",
                  stream_compact="compact_kernel", stream_expand="expand_kernel",
                  winner_index="winner_index_kernel", bvh_winner_index="bvh_winner_kernel",
-                 mega_bwd="mega_bwd_kernel", denoise="denoise_kernel")
+                 mega_bwd="mega_bwd_kernel", denoise="denoise_kernel",
+                 wavefront_bounce="wavefront_bounce_kernel")
 # SASS opcodes that issue on the FP32 pipe
 FP32_PIPE_OPS = ("FADD", "FMUL", "FFMA", "FMNMX")
 
@@ -3285,7 +3373,7 @@ def main():
     train_launches = dict(kb.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     want = dict(mega_trace=2 * SPP, mega_trace_aux=0, stream_compact=SPP, stream_expand=SPP,
-                mega_bwd=SPP, winner_index=0, bvh_winner_index=0, denoise=0)
+                mega_bwd=SPP, winner_index=0, bvh_winner_index=0, denoise=0, wavefront_bounce=0)
     if train_launches != want:
         raise AssertionError(f"training step launches {train_launches}, expected {want}")
     for name, g in (("kd", g_kd), ("emission", g_em)):

@@ -18,7 +18,9 @@ megakernel (``ops/mega.py``); a scene with BVH tables, or any grouped
 scene under POCA_MEGA=0, takes the per-bounce wavefront path, whose
 closest hit walks the BVH (``csrc/bvh.cu``) or runs the dense winner
 kernel (``csrc/winner.cu``); POCA_BVH=0 ignores attached tables.  The
-wavefront path runs the planar body for flat pixel indices; under
+wavefront path runs the planar body for flat pixel indices, whose work
+around the winner search is one ``csrc/wavefront.cu`` launch a bounce on
+the card when nothing needs its graph (:func:`trace_bounces`); under
 POCA_PLANAR=0 it runs the row-major body (:func:`trace_bounces_rowmajor`,
 JAX `integrator.py:142-192`), whose closest hit is
 ``fast.intersect_and_gather`` (the dense winner kernel once a bounce on
@@ -51,6 +53,13 @@ import os
 import torch
 
 from cpppathtracer_tpu_torch.ops import bsdf, fast, intersect, mathx, planar, texture
+from cpppathtracer_tpu_torch.ops.cuda.wavefront_kernel import (
+    bounce_p,
+    carry_parts,
+    field_major_tables,
+    start_planes,
+    wavefront_bounce,
+)
 from cpppathtracer_tpu_torch.ops.mathx import div_const
 from cpppathtracer_tpu_torch.ops.mega import mega_sample
 from cpppathtracer_tpu_torch.ops.uv import surface_uv, surface_uv_p
@@ -89,55 +98,80 @@ def trace_bounces(gs, rays, pixel_idx, sample_idx, seed, max_depth: int, *, tex_
     tuples of f32[R]) over the grouped scene `gs` one bounce at a time.
     Each bounce's winner is ``fast.closest_index`` (the BVH walk or the
     dense search), or with `gidx_planes` the saved one; its record and hit
-    attributes come from ``planar.gather_epilogue_p`` on `tables` (default
-    gs.table_s, gs.table_r), and the hit is recomputed from them (t < INF).
-    With both `gidx_planes` and `tables`, `gs` is not read.
-    With `tex_stack` the attenuation takes the textured albedo.  A path
-    that missed keeps its ray, which misses again, so at the end its
-    direction and throughput are the miss direction and throughput.
+    attributes come from `tables` (default gs.table_s, gs.table_r), and the
+    hit is recomputed from them (t < INF).  With both `gidx_planes` and
+    `tables`, `gs` is not read.  With `tex_stack` the attenuation takes the
+    textured albedo.  A path that missed keeps its ray, which misses again,
+    so at the end its direction and throughput are the miss direction and
+    throughput.
+
+    The body around the winner search is one ``csrc/wavefront.cu`` launch a
+    bounce where the call allows it: CUDA tensors, grad mode off, no saved
+    winners and no textures (the serving path and
+    :class:`WavefrontSample`'s forward).  Everywhere else it is the PyTorch
+    body, :func:`trace_bounces_p`.  Both give the same bits.
 
     Returns planar (rad vec3, miss_dir vec3, miss_thru vec3, missed f32[R],
-    first_n vec3, first_t f32[R], winner index planes, hit planes (bool));
-    the sky epilogue is the caller's (:func:`sky_epilogue`)."""
+    first_n vec3, first_t f32[R], winner index planes, hit planes (bool;
+    None where the kernel ran, which keeps none)); the sky epilogue is the
+    caller's (:func:`sky_epilogue`)."""
+    if (rays[0][0].is_cuda and not torch.is_grad_enabled() and gidx_planes is None
+            and tex_stack is None):
+        return _trace_fused(gs, rays, pixel_idx, sample_idx, seed, max_depth, tables)
+    return trace_bounces_p(gs, rays, pixel_idx, sample_idx, seed, max_depth,
+                           tex_stack=tex_stack, gidx_planes=gidx_planes, tables=tables)
+
+
+def trace_bounces_p(gs, rays, pixel_idx, sample_idx, seed, max_depth: int, *, tex_stack=None,
+                    gidx_planes=None, tables=None):
+    """:func:`trace_bounces` in PyTorch on any device: each bounce's winner,
+    then ``wavefront_kernel.bounce_p``.  Differentiable."""
     table_s, table_r = (gs.table_s, gs.table_r) if tables is None else tables
     o, d = rays
     zero = torch.zeros_like(o[0])
     one = zero + 1.0
-    thru = (one, one, one)
-    rad = (zero, zero, zero)
-    first_n = (zero, zero, zero)
-    first_t = zero
-    alive = zero < 1.0
+    carry = (o, d, (one, one, one), (zero, zero, zero), zero < 1.0)
+    first_n, first_t = (zero, zero, zero), zero
     tmax = zero + INF
+    kd_of = None
+    if tex_stack is not None:
+        kd_of = lambda mats, hit: _textured_kd(mats["tex_id"], mats["_geom_p"], hit["pos"],
+                                               tex_stack, mats["kd_p"])
     gidxs, hits = [], []
     for b in range(max_depth):
         tmin = zero + (0.0 if b == 0 else TMIN_BOUNCE)
-        gidx = fast.closest_index(gs, o, d, tmin, tmax) if gidx_planes is None else gidx_planes[b]
-        hit, mats = planar.gather_epilogue_p(table_s, table_r, o, d, tmin, tmax, gidx)
+        gidx = (fast.closest_index(gs, carry[0], carry[1], tmin, tmax) if gidx_planes is None
+                else gidx_planes[b])
         gidxs.append(gidx)
-        hits.append(hit["hit"])
-        u1, u2, u3, _ = uniforms4(seed, pixel_idx, sample_idx, 1 + b)
-        kd_override = None
-        if tex_stack is not None:
-            kd_override = _textured_kd(mats["tex_id"], mats["_geom_p"], hit["pos"], tex_stack,
-                                       mats["kd_p"])
-        # the score-function weight is 1.0 in value: only a graph needs it
-        bounce_dir, attenuation, emitted = planar.shade_p(
-            mats, hit["normal"], d, u1, u2, u3, kd_override=kd_override,
-            score_grad=torch.is_grad_enabled(),
-        )
-        live_hit = hit["hit"] & alive
-        lh = live_hit.to(torch.float32)
-        rad = planar.add_p(rad, planar.scale_p(planar.mul_p(thru, emitted), lh))
-        thru = planar.where_p(live_hit, planar.mul_p(thru, attenuation), thru)
-        if b == 0:
-            first_n = planar.where_p(hit["hit"], hit["normal"], planar.scale_p(d, -1.0))
-            first_t = hit["t"]
-        alive = alive & hit["hit"]
-        o = planar.where_p(hit["hit"], hit["pos"], o)
-        d = planar.where_p(hit["hit"], planar.normalize_p(bounce_dir), d)
-    missed = (~alive).to(torch.float32)
-    return rad, d, thru, missed, first_n, first_t, gidxs, hits
+        carry, hit, first = bounce_p(table_s, table_r, carry, gidx, tmin, tmax, pixel_idx,
+                                     sample_idx, seed, b, kd_of=kd_of)
+        hits.append(hit)
+        if first is not None:
+            first_n, first_t = first
+    _, d, thru, rad, alive = carry
+    return rad, d, thru, (~alive).to(torch.float32), first_n, first_t, gidxs, hits
+
+
+def _trace_fused(gs, rays, pixel_idx, sample_idx, seed, max_depth: int, tables=None):
+    """:func:`trace_bounces` on the card without autograd: the winner
+    search and one ``wavefront_bounce`` launch a bounce, on carry planes
+    updated in place (so `o`, `d`, `thru`, `rad` below, views of them, hold
+    each bounce's values)."""
+    carry, alive, first = start_planes(*rays)
+    o, d, thru, rad = carry_parts(carry)
+    ts, trt = field_major_tables(*((gs.table_s, gs.table_r) if tables is None else tables))
+    pix = pixel_idx.to(torch.int32).contiguous()
+    samp = sample_key(sample_idx, pix.shape[0], pix.device)
+    zero = torch.zeros_like(o[0])
+    tmins = (zero, zero + TMIN_BOUNCE)
+    tmax = zero + INF
+    gidxs = []
+    for b in range(max_depth):
+        gidx = fast.closest_index(gs, o, d, tmins[b > 0], tmax)
+        gidxs.append(gidx)
+        wavefront_bounce(carry, alive, first, gidx, pix, samp, seed, ts, trt, bounce=b)
+    return (rad, d, thru, (~alive).to(torch.float32), tuple(first[0:3]), first[3], gidxs,
+            None)
 
 
 class WavefrontSample(torch.autograd.Function):

@@ -40,7 +40,8 @@ NVCC_FLAGS = [
 # launches per wrapper since the last reset_launches(); mega_trace's with_aux
 # form (a kernel instantiation of its own) counts apart
 LAUNCHES = {"mega_trace": 0, "mega_trace_aux": 0, "stream_compact": 0, "stream_expand": 0,
-            "mega_bwd": 0, "winner_index": 0, "bvh_winner_index": 0, "denoise": 0}
+            "mega_bwd": 0, "winner_index": 0, "bvh_winner_index": 0, "denoise": 0,
+            "wavefront_bounce": 0}
 
 
 def reset_launches():
@@ -144,6 +145,10 @@ _SIGNATURES = {
     "poca_bvh_info": [_I] * 2 + [_P],
     # rad nrm dep out | H W stepwidth | stream
     "poca_denoise": [_P] * 4 + [_I] * 3 + [_P],
+    # carry alive first gidx pix samp seed ts trt | R n_tab bounce | stream
+    "poca_wavefront_bounce": [_P] * 9 + [_I] * 3 + [_P],
+    # R | info (registers, local bytes, blocks per SM, grid)
+    "poca_wavefront_info": [_I, _P],
 }
 
 

@@ -432,7 +432,7 @@ def test_bench_step_matches_loss_grads_on_card(dev):
     assert chip_smoke.same_fields(scene, s0) and chip_smoke.same_fields(camera, cam)
     assert torch.equal(sky, sky0)
     want = dict(mega_trace=4, mega_trace_aux=0, stream_compact=2, stream_expand=2, mega_bwd=2,
-                winner_index=0, bvh_winner_index=0, denoise=0)
+                winner_index=0, bvh_winner_index=0, denoise=0, wavefront_bounce=0)
     kb.reset_launches()
     step()  # the compiled step's first call: its warm-up runs eagerly, then a replay
     torch.cuda.synchronize()
@@ -1643,3 +1643,179 @@ def test_compiled_sharded_train_step_across_cards(dev):
         assert _held_to_eager(got, runs), [{f: _rel(got[f], r[f]) for f in got} for r in runs]
         assert step.graphs.captures == 5
     step.graphs.clear()
+
+
+# ------------------------------------------------- the fused wavefront bounce
+
+
+def _wavefront_state(dev, bounce):
+    """The wavefront planes of 256^2 primaries of big_scene(4096) (its BVH)
+    traced to bounce `bounce` by the plain bounce, and that bounce's
+    winners: (gs, planes, gidx, pix, samp)."""
+    from cpppathtracer_tpu_torch.models.presets import big_camera, big_scene
+    from cpppathtracer_tpu_torch.ops.cuda.wavefront_kernel import (
+        carry_parts, field_major_tables, start_planes, wavefront_bounce_plain,
+    )
+    from cpppathtracer_tpu_torch.types import TMIN_BOUNCE
+
+    gs = fast.group_scene(big_scene(4096, device=dev))
+    cam = big_camera(4096, 256, 256, device=dev)
+    r = 256 * 256
+    pix = torch.arange(r, dtype=torch.int32, device=dev)
+    samp = (pix % 7).to(torch.int32)
+    planes = start_planes(*cam.ray_gen_planar(pix, samp, 3_000_000_123))
+    o, d, _, _ = carry_parts(planes[0])
+    ts, trt = field_major_tables(gs.table_s, gs.table_r)
+    zero = torch.zeros(r, device=dev)
+    for b in range(bounce + 1):
+        gidx = fast.closest_index(gs, o, d, zero + (0.0 if b == 0 else TMIN_BOUNCE), zero + INF)
+        if b < bounce:
+            wavefront_bounce_plain(*planes, gidx, pix, samp, 3_000_000_123, ts, trt, bounce=b)
+    return (ts, trt), planes, gidx, pix, samp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bounce", [0, 3])
+def test_wavefront_bounce_matches_plain_on_card(dev, bounce):
+    """csrc/wavefront.cu against its plain version on 256^2 lanes of
+    big_scene(4096) at bounce 0 and 3 (the walk's winners, live and dead
+    lanes): one launch, carry, alive and first bitwise; the seed as an int
+    and as a device word give the same bits."""
+    from cpppathtracer_tpu_torch.ops.cuda.wavefront_kernel import (
+        wavefront_bounce, wavefront_bounce_plain,
+    )
+
+    (ts, trt), planes, gidx, pix, samp = _wavefront_state(dev, bounce)
+    ref = [t.clone() for t in planes]
+    wavefront_bounce_plain(*ref, gidx, pix, samp, 3_000_000_123, ts, trt, bounce=bounce)
+    for seed in (3_000_000_123, torch.tensor([3_000_000_123 - 2**32], dtype=torch.int32,
+                                             device=dev)):
+        got = [t.clone() for t in planes]
+        kb.reset_launches()
+        wavefront_bounce(*got, gidx, pix, samp, seed, ts, trt, bounce=bounce)
+        torch.cuda.synchronize()
+        assert kb.LAUNCHES["wavefront_bounce"] == 1
+        for a, b in zip(got, ref):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    alive = planes[1]
+    assert bounce == 0 or (0 < int(alive.sum()) < alive.numel())
+
+
+def _render_body(scene, cam, sky, spp, depth, seed):
+    """render_radiance (chunks of one sample) with each sample's bounces
+    through the PyTorch body, integrator.trace_bounces_p, called directly."""
+    from cpppathtracer_tpu_torch import integrator
+    from cpppathtracer_tpu_torch.ops import planar, texture
+    from cpppathtracer_tpu_torch.ops.mathx import div_const
+    from cpppathtracer_tpu_torch.utils.rng import sample_key
+
+    dev = scene.device
+    gs = fast.group_scene(scene)
+    sky_p = texture.pack_bilinear(sky)
+    r = cam.width * cam.height
+    pix = torch.arange(r, dtype=torch.int32, device=dev)
+    acc = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    for s in range(spp):
+        samp = sample_key(s, r, dev)
+        o, d = cam.ray_gen_planar(pix, samp, seed)
+        rad, md, mt, missed, fn, ft, _, _ = integrator.trace_bounces_p(gs, (o, d), pix, samp,
+                                                                       seed, depth)
+        acc = acc + integrator.sky_epilogue(sky_p, rad, md, mt, missed)
+        if s == 0:
+            first = (planar.stack_v3(fn), ft)
+    return (div_const(acc, float(spp)), *first)
+
+
+@pytest.mark.gpu
+def test_bvh_render_fused_matches_body_on_card(dev):
+    """render_radiance of big_scene(4096) with its BVH at 256^2 x 2 spp x d8
+    (serving: no grad) equals, bitwise, the same render through the PyTorch
+    body; the fused bounce launches depth x chunks times (16), the walk as
+    often."""
+    from cpppathtracer_tpu_torch.integrator import render_radiance
+
+    scene, cam, sky = _serving_scene(dev, "bvh", size=256)
+    with torch.no_grad():
+        kb.reset_launches()
+        got = render_radiance(scene, cam, sky, spp=2, max_depth=8, seed=11)
+        torch.cuda.synchronize()
+        assert kb.LAUNCHES["wavefront_bounce"] == kb.LAUNCHES["bvh_winner_index"] == 16
+        ref = _render_body(scene, cam, sky, 2, 8, 11)
+    assert _bits_equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["textured", "replay", "demo"])
+def test_wavefront_bounce_not_launched_on_card(dev, which):
+    """The fused bounce does not launch for a textured BVH render (the
+    PyTorch body samples the textures), the backward's replay of a BVH
+    render (autograd over float64 tables; its forward launches depth a
+    sample) or a demo-scene render (the megakernel)."""
+    import dataclasses
+
+    from cpppathtracer_tpu_torch.integrator import render_radiance
+    from cpppathtracer_tpu_torch.ops.texture import procedural_sky
+    from cpppathtracer_tpu_torch.types import PrimitiveType
+
+    scene, cam, sky = _serving_scene(dev, "demo" if which == "demo" else "bvh", size=64)
+    kb.reset_launches()
+    if which == "textured":
+        tid = torch.where(scene.prim_type == PrimitiveType.CYLINDER, 0, -1).to(torch.int32)
+        tex = torch.from_numpy(procedural_sky(64, 64, seed=1)[None]).to(dev)
+        with torch.no_grad():
+            render_radiance(dataclasses.replace(scene, tex_id=tid), cam, sky, spp=2,
+                            max_depth=8, tex_stack=tex)
+        assert kb.LAUNCHES["bvh_winner_index"] == 16
+    elif which == "replay":
+        kd = scene.kd.clone().requires_grad_()
+        rad, _, _ = render_radiance(scene.with_material_params({"kd": kd}), cam, sky, spp=2,
+                                    max_depth=8)
+        torch.cuda.synchronize()
+        assert kb.LAUNCHES["wavefront_bounce"] == kb.LAUNCHES["bvh_winner_index"] == 16
+        kb.reset_launches()
+        (g,) = torch.autograd.grad((rad * rad).sum(), kd)
+        torch.cuda.synchronize()
+        assert float(g.abs().max()) > 0 and kb.LAUNCHES["bvh_winner_index"] == 0
+    else:
+        with torch.no_grad():
+            render_radiance(scene, cam, sky, spp=2, max_depth=8)
+        assert kb.LAUNCHES["mega_trace"] > 0
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["wavefront_bounce"] == 0
+
+
+@pytest.mark.gpu
+def test_bvh_wavefront_grads_match_body_on_card(dev, monkeypatch):
+    """The gradients (kd, emission, camera origin) of a BVH scene's render
+    through WavefrontSample, whose forward now launches the fused bounce,
+    against the same with the forward through the PyTorch body
+    (integrator.trace_bounces set to trace_bounces_p), at 128^2 x 2 spp x
+    d8 of big_scene(4096): the tolerance of the gradient test of the
+    megakernel's Function (cosine > 0.9999, norms within 1e-3); the forward
+    is bitwise, so they are expected to agree to the table cotangents'
+    atomic sums."""
+    from cpppathtracer_tpu_torch import integrator
+
+    scene, cam, sky = _serving_scene(dev, "bvh", size=128)
+
+    def grads():
+        kd = scene.kd.clone().requires_grad_()
+        em = scene.emission.clone().requires_grad_()
+        origin = cam.origin.clone().requires_grad_()
+        s = scene.with_material_params({"kd": kd, "emission": em})
+        rad, _, _ = integrator.render_radiance(s, cam.replace(origin=origin), sky, spp=2,
+                                               max_depth=8)
+        return torch.autograd.grad((rad * rad).sum(), (kd, em, origin))
+
+    kb.reset_launches()
+    k = grads()
+    assert kb.LAUNCHES["wavefront_bounce"] == 16
+    monkeypatch.setattr(integrator, "trace_bounces", integrator.trace_bounces_p)
+    kb.reset_launches()
+    p = grads()
+    assert kb.LAUNCHES["wavefront_bounce"] == 0
+    for a, b in zip(k, p):
+        a, b = a.flatten().double(), b.flatten().double()
+        assert float(b.norm()) > 0
+        assert float(a @ b / (a.norm() * b.norm())) > 0.9999
+        assert abs(float(a.norm() / b.norm()) - 1) < 1e-3
