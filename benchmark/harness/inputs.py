@@ -1,11 +1,16 @@
 """The cell's inputs, made by the benchmark and handed to both sides.
 
-The scene, camera and sky come from the configuration through the frozen
-generators of `benchmark/reference/scenes.py`.  The program builds its own
-objects from those arrays through its public constructors (and derives its
-BVH tables itself); the reference builds its own from the same arrays.
-Random draws of the traffic come from `rng(ctx, stream)`, a function of the
-seed alone.
+The scene, camera and sky come from the configuration: the scene through a
+frozen generator of `benchmark/reference/scenes.py` or one the
+configuration brings as a file of its own (`benchmark/scenes/<generator>.py`,
+`registry.scene_part`), the sky likewise (the frozen `procedural_sky` where
+the configuration's `sky` names no generator), each checked against the
+layout both sides read (`scenes.check_scene`, `scenes.check_sky`); the
+camera from its `camera` entry, lens radius included.  The program builds
+its own objects from those arrays through its public constructors (and
+derives its BVH tables itself); the reference builds its own from the same
+arrays.  Random draws of the traffic come from `rng(ctx, stream)`, a
+function of the seed alone.
 """
 
 from __future__ import annotations
@@ -15,7 +20,10 @@ import functools
 import numpy as np
 import torch
 
+from benchmark.harness import registry
 from benchmark.reference import scenes, tracer
+
+FROZEN = "benchmark/reference/scenes.py"
 
 
 def seed_words(seed: int) -> list:
@@ -34,12 +42,29 @@ def rng(ctx, stream: int) -> np.random.Generator:
     return np.random.default_rng(seed_words(ctx.seed) + [int(stream)])
 
 
+def make_scene(spec: dict) -> dict:
+    """A configuration's `scene` entry ({"generator": name, "args": {...}})
+    as checked arrays."""
+    name = spec["generator"]
+    fn, where = ((scenes.SCENES[name], FROZEN) if name in scenes.SCENES
+                 else registry.scene_part(name, "scene"))
+    return scenes.check_scene(fn(**spec.get("args", {})), where)
+
+
+def make_sky(spec: dict) -> np.ndarray:
+    """A configuration's `sky` entry: {"generator": name, "args": {...}},
+    or the frozen procedural sky's arguments; as a checked map."""
+    if "generator" not in spec:
+        return scenes.check_sky(scenes.procedural_sky(**spec), FROZEN)
+    fn, where = registry.scene_part(spec["generator"], "sky")
+    return scenes.check_sky(fn(**spec.get("args", {})), where)
+
+
 @functools.lru_cache(maxsize=4)
 def _arrays(scene_key: str, sky_key: str):
     import json
 
-    spec, sky = json.loads(scene_key), json.loads(sky_key)
-    return scenes.make_scene(spec), scenes.procedural_sky(**sky)
+    return make_scene(json.loads(scene_key)), make_sky(json.loads(sky_key))
 
 
 def arrays(ctx):
@@ -69,18 +94,21 @@ def program_inputs(ctx):
     cam = camera_spec(ctx)
     s = ctx.settings
     camera = Camera.make(s["width"], s["height"], origin=cam["origin"], look_at=cam["look_at"],
-                         view_fov=cam["view_fov"], device=dev)
+                         view_fov=cam["view_fov"], lens_radius=cam["lens_radius"], device=dev)
     return {"scene": scene, "camera": camera, "sky": convert.sky_from_numpy(sky, device=dev)}
 
 
 def reference_inputs(ctx, dtype, pose=None):
-    """The reference's scene, camera (at `pose`, (origin, look_at, fov),
-    when given) and sky in `dtype` on the cell's first device."""
+    """The reference's scene, camera (at `pose`, (origin, look_at, fov,
+    lens_radius), when given) and sky in `dtype` on the cell's first
+    device."""
     arr, sky = arrays(ctx)
     cam = camera_spec(ctx)
-    origin, look_at, fov = pose or (cam["origin"], cam["look_at"], cam["view_fov"])
+    origin, look_at, fov, lens = pose or (cam["origin"], cam["look_at"], cam["view_fov"],
+                                          cam["lens_radius"])
     s = ctx.settings
     dev = ctx.device
     return {"scene": tracer.Scene(arr, dev, dtype, ctx.config.get("search", "direct")),
-            "camera": tracer.Camera(origin, look_at, fov, s["width"], s["height"], dev, dtype),
+            "camera": tracer.Camera(origin, look_at, fov, s["width"], s["height"], dev, dtype,
+                                    lens_radius=lens),
             "sky": torch.as_tensor(sky, device=dev).to(dtype)}

@@ -2,11 +2,15 @@
 
 `BENCHMARK.json` at the root of the checkout lists the cells and metrics.
 Each cell is `benchmark/workloads/<cell>.json`; it names its configuration,
-`benchmark/configs/<config>.json`, and its traffic kind, whose generator is
-`benchmark/traffic/<kind>.py`.  Each per-layer metric is read by
+`benchmark/configs/<config>.json`, its traffic kind, whose generator is
+`benchmark/traffic/<kind>.py`, and its render settings (its own, or one of
+its configuration's by name).  A configuration's scene or sky generator
+that is not one of the frozen built-ins (`reference/scenes.py`) is
+`benchmark/scenes/<generator>.py`.  Each per-layer metric is read by
 `benchmark/layers/<metric>.py`, and each kernel's operations and bytes are
 counted by `benchmark/roofline/<kernel>.py`.  A later change adds a cell,
-a traffic kind, a metric or a kernel by adding such files and entries.
+a configuration with its own scene, sky and lens, a traffic kind, a metric
+or a kernel by adding such files and entries.
 """
 
 from __future__ import annotations
@@ -27,9 +31,16 @@ def _name(kind: str, name: str) -> str:
     return name
 
 
+def shown(path) -> str:
+    """A path as messages give it: from the checkout's root where it lies
+    inside it."""
+    path = Path(path)
+    return str(path.relative_to(ROOT)) if path.is_relative_to(ROOT) else str(path)
+
+
 def _json(path: Path) -> dict:
     if not path.is_file():
-        raise FileNotFoundError(f"{path.relative_to(ROOT)} is missing")
+        raise FileNotFoundError(f"{shown(path)} is missing")
     return json.loads(path.read_text())
 
 
@@ -53,7 +64,7 @@ def config(name: str) -> dict:
 
 def _module(path: Path, label: str):
     if not path.is_file():
-        raise FileNotFoundError(f"{path.relative_to(ROOT)} is missing")
+        raise FileNotFoundError(f"{shown(path)} is missing")
     spec = importlib.util.spec_from_file_location(label, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -65,6 +76,19 @@ def traffic(kind: str):
     run(state, ctx, seconds=None, iterations=None), release(state, ctx) and
     check(state, ctx)."""
     return _module(BENCH_DIR / "traffic" / f"{_name('traffic', kind)}.py", f"bench_traffic_{kind}")
+
+
+def scene_part(generator: str, part: str):
+    """(function, file) of a configuration's own scene or sky generator:
+    `part` ("scene" or "sky") of `benchmark/scenes/<generator>.py`, where
+    scene(**args) gives arrays in `reference/scenes.py`'s FIELDS layout and
+    sky(**args) a map f32[H, W, 3]."""
+    path = BENCH_DIR / "scenes" / f"{_name('scene', generator)}.py"
+    fn = getattr(_module(path, f"bench_scene_{generator}".replace("-", "_").replace(".", "_")),
+                 part, None)
+    if not callable(fn):
+        raise ValueError(f"{shown(path)} has no function {part}(**args)")
+    return fn, shown(path)
 
 
 def layer_reader(metric: str):

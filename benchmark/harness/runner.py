@@ -48,7 +48,8 @@ def log(msg: str):
 @dataclasses.dataclass
 class Context:
     """What a traffic kind is given: the cell, its configuration and its
-    render settings, the seed, the window and where it runs."""
+    render settings (`cell_settings`), the seed, the window and where it
+    runs."""
 
     cell: str
     workload: dict
@@ -119,12 +120,29 @@ def power_limit(index: int = 0) -> str:
     return lines[index].strip() if index < len(lines) else "not read"
 
 
+SETTINGS = ("width", "height", "spp")
+
+
+def cell_settings(wl: dict, cfg: dict) -> dict:
+    """A cell's render settings: its workload's own {"width", "height",
+    "spp"}, or the name of one of its configuration's `settings`."""
+    s = wl["settings"]
+    where = f"workloads/{wl['name']}.json"
+    if isinstance(s, str):
+        if s not in cfg.get("settings", {}):
+            raise KeyError(f"{where}: configs/{cfg['name']}.json has no settings {s!r}")
+        s, where = cfg["settings"][s], f"configs/{cfg['name']}.json's settings {s!r}"
+    if not (isinstance(s, dict) and sorted(s) == sorted(SETTINGS)
+            and all(type(v) is int and v > 0 for v in s.values())):
+        raise ValueError(f"{where}: settings are positive whole numbers {', '.join(SETTINGS)}")
+    return dict(s)
+
+
 def make_context(cell: str, seed: int, seconds: float, trace_on: bool, devices) -> Context:
     wl = registry.workload(cell)
     cfg = registry.config(wl["config"])
     return Context(cell=cell, workload=wl, config=cfg, seed=int(seed), seconds=float(seconds),
-                   trace=trace_on, devices=list(devices),
-                   settings=dict(cfg["settings"][wl["settings"]]))
+                   trace=trace_on, devices=list(devices), settings=cell_settings(wl, cfg))
 
 
 def run_cell(ctx: Context, t0: float, bench: dict) -> dict:
@@ -155,13 +173,17 @@ def run_cell(ctx: Context, t0: float, bench: dict) -> dict:
         + ", ".join(f"{k} {v:.3f}" for k, v in ctx.phases.items()) + "); window")
     reduced = None
     if ctx.trace:
+        t_window = time.perf_counter()
         n = int(ctx.workload["trace_iterations"])
         with trace.profiled(ctx.sync, host=False) as reduced:
             out = kind.run(state, ctx, iterations=n)
+        t_cards = time.perf_counter()
         # the host's activity, recorded in a pass of its own, names the idle gaps
         with trace.profiled(ctx.sync, host=True) as labelled:
             kind.run(state, ctx, iterations=int(ctx.workload.get("label_iterations", n)))
         reduced["idle_gaps"] = labelled["idle_gaps"]
+        log(f"{ctx.cell}: cards-only pass read in {t_cards - t_window:.3f} s, labelling pass "
+            f"in {time.perf_counter() - t_cards:.3f} s")
     else:
         out = kind.run(state, ctx, seconds=ctx.seconds)
     peak = ctx.memory_peak_bytes()

@@ -88,10 +88,11 @@ def reduce_events(events: list, window_s: float) -> dict:
     for m in merged.values():
         edges = [lo if win else (m[0][0] if m else 0.0)] + [x for iv in m for x in iv] + [
             hi if win else (m[-1][1] if m else 0.0)]
-        for a, b in zip(edges[0::2], edges[1::2]):
-            if b > a:
-                gaps.append((b - a, _host_at((a + b) / 2, spans, calls)))
+        gaps += [(b - a, (a + b) / 2) for a, b in zip(edges[0::2], edges[1::2]) if b > a]
+    # only the ten longest are named: a search of the host's records for every gap takes
+    # minutes on a window of many short kernels
     gaps.sort(key=lambda g: -g[0])
+    gaps = [(d, _host_at(mid, spans, calls)) for d, mid in gaps[:10]]
     top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:10]
     return {
         "busy_s": busy_s,
@@ -99,7 +100,7 @@ def reduce_events(events: list, window_s: float) -> dict:
         "cards": max(1, len(merged)),
         "ops": ops,
         "device_ops": [[k, v] for k, v in top_ops],
-        "idle_gaps": [[name, d / 1e6] for d, name in gaps[:10]],
+        "idle_gaps": [[name, d / 1e6] for d, name in gaps],
     }
 
 

@@ -2,7 +2,7 @@
 
     python benchmark/readings.py --workload <cell> --seeds 11,12,... \
         [--control-seeds 11,12,13] [--faults] [--iterations N] [--counts N] \
-        [--search direct|expanded]
+        [--walk] [--search direct|expanded]
 
 For each seed of --seeds: the cell's set-up and N iterations of its traffic
 (the timed path at the cell's own sizes), then the numbers the check
@@ -17,9 +17,10 @@ sample needs on the cell's inputs, as the reference counts it (live
 ray-bounces and hits), for the cell's `counts` (kept there with --write):
 N samples at the configured camera, or, for a traffic kind that flies the
 camera (`flight_poses`), one sample at each of N cameras spread over one
-period of the flight; --walk the BVH walk's (`roofline/bvh_walk.py`).  One JSON line each on standard output.  Not run
-by the benchmark's runs: it is how the limits and counts in
-`workloads/<cell>.json` were read (PERF.md).
+period of the flight; --walk adds the BVH walk's (`roofline/bvh_walk.py`)
+over the same samples (one sample without --counts).  One JSON line each on
+standard output.  Not run by the benchmark's runs: it is how the limits and
+counts in `workloads/<cell>.json` were read (PERF.md).
 """
 
 from __future__ import annotations
@@ -35,62 +36,54 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from benchmark.harness import inputs, registry, runner  # noqa: E402
 
 
-def counts(ctx, samples: int, kind=None) -> dict:
+def counts(ctx, samples: int, kind=None, walk: bool = False) -> dict:
     """Live ray-bounces and hits a sample of the cell's traffic needs, by the
-    float32 reference's trace of every pixel at the configured camera, or
-    at `samples` cameras of the flight where the traffic kind flies one."""
+    float32 reference's trace of every pixel: `samples` samples (keys 0,
+    1, ...) at the configured camera, or, for a traffic kind that flies the
+    camera (`flight_poses`), one sample (key 0) at each of `samples`
+    cameras spread over one period of the flight.  With `walk`, also the
+    BVH walk's work a sample needs (`roofline/bvh_walk.py`): the live rays
+    of every bounce of the same traces, walked by the counting walk of the
+    cell's BVH."""
     import torch
 
     from benchmark.reference import tracer
 
     fly = getattr(kind, "flight_poses", None)
-    poses = fly(ctx, samples) if fly else [None] * samples
+    at = [(pose, 0) for pose in fly(ctx, samples)] if fly else [(None, k) for k in range(samples)]
+    tot = {"slabs": 0, "rows": {0: 0, 1: 0, 2: 0}, "rays": 0, "bounces": 0}
+    on_bounce = None
+    if walk:
+        bvh_walk = registry.roofline("bvh_walk")
+        bvh = bvh_walk.build(inputs.arrays(ctx)[0], ctx.config.get("leaf_size"))
+
+        def on_bounce(o, d, tmin):
+            c = bvh_walk.count(bvh, o, d, tmin)
+            tot["slabs"] += c["slabs"]
+            tot["rows"] = {k: tot["rows"][k] + v for k, v in c["rows"].items()}
+            tot["rays"] += o[0].numel()
+            tot["bounces"] += 1
+
     s = ctx.settings
     pix = torch.arange(s["width"] * s["height"], dtype=torch.int32, device=ctx.device)
     live = hits = 0
-    for k, pose in enumerate(poses):
+    for pose, key in at:
         ref = inputs.reference_inputs(ctx, torch.float32, pose=pose)
-        key = 0 if fly else k
         p = tracer.trace(ref["scene"], ref["camera"], ref["sky"], pix, torch.full_like(pix, key),
-                         int(ctx.seed) & 0xFFFFFFFF, ctx.config["depth"])
+                         int(ctx.seed) & 0xFFFFFFFF, ctx.config["depth"], on_bounce=on_bounce)
         live += p.live_ray_bounces
         hits += p.hits
-    return {"live_ray_bounces_per_sample": live / samples, "hits_per_sample": hits / samples,
-            "samples": samples, "seed": ctx.seed}
-
-
-def walk_counts(ctx) -> dict:
-    """The BVH walk's work a sample needs (`roofline/bvh_walk.py`): the
-    live rays of every bounce of the float32 reference's trace of every
-    pixel, walked by the counting walk of the cell's BVH."""
-    import torch
-
-    from benchmark.reference import tracer
-
-    walk = registry.roofline("bvh_walk")
-    arr, _ = inputs.arrays(ctx)
-    bvh = walk.build(arr, ctx.config.get("leaf_size"))
-    ref = inputs.reference_inputs(ctx, torch.float32)
-    s = ctx.settings
-    pix = torch.arange(s["width"] * s["height"], dtype=torch.int32, device=ctx.device)
-    tot = {"slabs": 0, "rows": {0: 0, 1: 0, 2: 0}, "rays": 0, "bounces": 0}
-
-    def on_bounce(o, d, tmin):
-        c = walk.count(bvh, o, d, tmin)
-        tot["slabs"] += c["slabs"]
-        tot["rows"] = {k: tot["rows"][k] + v for k, v in c["rows"].items()}
-        tot["rays"] += o[0].numel()
-        tot["bounces"] += 1
-
-    tracer.trace(ref["scene"], ref["camera"], ref["sky"], pix, torch.zeros_like(pix),
-                 int(ctx.seed) & 0xFFFFFFFF, ctx.config["depth"], on_bounce=on_bounce)
-    return {"walk_ops_per_sample": walk.ops_of(tot),
-            "walk_bytes_per_sample": walk.BYTES_RAY * tot["rays"]
-            + tot["bounces"] * walk.table_bytes(bvh),
-            "walk_slab_tests_per_sample": tot["slabs"],
-            "walk_leaf_rows_per_sample": [tot["rows"][k] for k in (0, 1, 2)],
-            "nodes": int(bvh["box"].shape[0]), "leaf_size": int(bvh["leaf_size"]),
-            "seed": ctx.seed}
+    out = {"live_ray_bounces_per_sample": live / samples, "hits_per_sample": hits / samples,
+           "samples": samples, "seed": ctx.seed}
+    if walk:
+        out.update({
+            "walk_ops_per_sample": bvh_walk.ops_of(tot) / samples,
+            "walk_bytes_per_sample": (bvh_walk.BYTES_RAY * tot["rays"]
+                                      + tot["bounces"] * bvh_walk.table_bytes(bvh)) / samples,
+            "walk_slab_tests_per_sample": tot["slabs"] / samples,
+            "walk_leaf_rows_per_sample": [tot["rows"][k] / samples for k in (0, 1, 2)],
+            "nodes": int(bvh["box"].shape[0]), "leaf_size": int(bvh["leaf_size"])})
+    return out
 
 
 def main(argv=None):
@@ -103,7 +96,8 @@ def main(argv=None):
     ap.add_argument("--faults", action="store_true")
     ap.add_argument("--iterations", type=int, default=2)
     ap.add_argument("--counts", type=int, default=0, help="samples to count the work of")
-    ap.add_argument("--walk", action="store_true", help="count the BVH walk's work a sample")
+    ap.add_argument("--walk", action="store_true",
+                    help="also count the BVH walk's work over the same samples (1 without --counts)")
     ap.add_argument("--reference-only", action="store_true",
                     help="the control's and the faults' readings of --control-seeds alone, "
                          "on the first card (traffic kinds that plant faults)")
@@ -131,19 +125,16 @@ def main(argv=None):
                       "check_s": time.perf_counter() - t0})
         return
     devs = runner.cards(int(wl["chips"]))
-    if a.counts:
+    if a.counts or a.walk:
         ctx = runner.make_context(a.workload, 0, 0.0, False, devs)
-        got = counts(ctx, a.counts, kind)
-        emit({"counts": got})
+        t0 = time.perf_counter()
+        got = counts(ctx, a.counts or 1, kind, walk=a.walk)
+        emit({"counts": got, "count_s": time.perf_counter() - t0})
         if a.write:
             path = registry.BENCH_DIR / "workloads" / f"{a.workload}.json"
             w = json.loads(path.read_text())
-            w["counts"].update({k: got[k] for k in ("live_ray_bounces_per_sample",
-                                                    "hits_per_sample", "samples", "seed")})
+            w["counts"].update({k: v for k, v in got.items() if k not in ("nodes", "leaf_size")})
             path.write_text(json.dumps(w, indent=1) + "\n")
-    if a.walk:
-        ctx = runner.make_context(a.workload, 0, 0.0, False, devs)
-        emit({"walk": walk_counts(ctx)})
     for seed in seeds(a.seeds):
         ctx = runner.make_context(a.workload, seed, 0.0, False, devs)
         if a.search:

@@ -39,12 +39,13 @@ def _cross(a, b):
 
 
 class Pose:
-    """A camera's origin, look-at and fov as float32 3-vectors on a device,
-    moved by the viewer's ops."""
+    """A camera's origin and look-at as float32 3-vectors on a device, moved
+    by the viewer's ops, with its fov and lens radius, which no op moves."""
 
-    def __init__(self, origin, look_at, view_fov, device):
+    def __init__(self, origin, look_at, view_fov, lens_radius, device):
         f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
         self.origin, self.look_at, self.view_fov = f(origin), f(look_at), float(view_fov)
+        self.lens_radius = float(lens_radius)
         self.speed = f(MOVE_SPEED)
         self.vup = torch.eye(3, dtype=torch.float32, device=device)[1]
 
@@ -80,8 +81,10 @@ class Pose:
             raise ValueError(f"unknown camera op {op!r}")
 
     def snapshot(self):
+        """(origin, look_at, fov, lens_radius), as `inputs.reference_inputs`
+        takes a pose."""
         return (self.origin.cpu().numpy().tolist(), self.look_at.cpu().numpy().tolist(),
-                self.view_fov)
+                self.view_fov, self.lens_radius)
 
 
 def neighbourhood(ys, xs, h: int, w: int, stepwidth: int = 1):

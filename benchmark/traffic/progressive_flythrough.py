@@ -90,7 +90,8 @@ def flight_poses(ctx, n: int) -> list:
     period of the flight from frame 0 (whose work `readings.py --counts`
     counts: a traced window is one period)."""
     cam = inputs.camera_spec(ctx)
-    pose = viewer.Pose(cam["origin"], cam["look_at"], cam["view_fov"], ctx.device)
+    pose = viewer.Pose(cam["origin"], cam["look_at"], cam["view_fov"], cam["lens_radius"],
+                       ctx.device)
     sch = Schedule(ctx.workload["params"])
     at = {i * sch.period // n for i in range(n)}
     out = []
@@ -198,7 +199,8 @@ def reference_frames(ctx, st, frames, dtype):
     """The reference's display values at the check pixels of each frame."""
     arr, _ = inputs.arrays(ctx)
     cam = inputs.camera_spec(ctx)
-    pose = viewer.Pose(cam["origin"], cam["look_at"], cam["view_fov"], ctx.device)
+    pose = viewer.Pose(cam["origin"], cam["look_at"], cam["view_fov"], cam["lens_radius"],
+                       ctx.device)
     w, h, spp, depth = st.w, st.h, st.spp, st.depth
     centres = torch.as_tensor(st.centres, device=ctx.device)
     ys, xs = centres // w, centres % w
