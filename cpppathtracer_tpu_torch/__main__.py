@@ -3,6 +3,7 @@
 otherwise:
 
   python -m cpppathtracer_tpu_torch render  --preset cornell --out out.png
+  python -m cpppathtracer_tpu_torch render  --preset rtow_final   (its own sky and lens)
   python -m cpppathtracer_tpu_torch video   --preset material_zoo --frames 24 --out-dir frames/
   python -m cpppathtracer_tpu_torch invert  --steps 100 --out-dir inverse_out/
   python -m cpppathtracer_tpu_torch progressive --preset demo --frames 16 --out out.png
@@ -47,7 +48,10 @@ def _scene_camera(args):
     if getattr(args, "size", None):
         w, h = map(int, args.size.split("x"))
         camera = camera.resize(w, h)
-    return preset, scene, camera, _load_sky(args.sky, dev)
+    # --sky wins over a preset's own sky
+    sky = (preset.sky_fn(device=dev) if preset.sky_fn is not None and not args.sky
+           else _load_sky(args.sky, dev))
+    return preset, scene, camera, sky
 
 
 def cmd_render(args):

@@ -299,13 +299,16 @@ struct BounceFwd {
   float radius, emission, smoothness, reflectivity, ior;
 };
 
-POCA_HD void bounce_body(const float* ts, const float* trt, int np, int w, V3 o, V3 d,
-                         float tmin, float u1, float u2, float u3, BounceFwd& f) {
+// The hit is recomputed in the window (tmin, tmax): the megakernel closes
+// it (tmax = tmin) where its search found no object, so that object w = 0
+// is not hit instead (`bounce_body`, every other caller's, keeps tmax INF).
+POCA_HD void bounce_body_in(const float* ts, const float* trt, int np, int w, V3 o, V3 d,
+                            float tmin, float tmax, float u1, float u2, float u3, BounceFwd& f) {
   const float* col = ts + w;  // ts[field * np + w]
   f.center = v3(col[0], col[np], col[2 * np]);
   f.radius = col[3 * np];
   hit_attrs((int)col[6 * np], f.center, f.radius, col[4 * np], col[5 * np], o, d, tmin,
-            POCA_INF, f.h);
+            tmax, f.h);
   f.hit = f.h.t < POCA_INF;
   f.t_safe = f.hit ? f.h.t : 0.0f;
   f.pos = add(o, scale(d, f.t_safe));
@@ -317,4 +320,9 @@ POCA_HD void bounce_body(const float* ts, const float* trt, int np, int w, V3 o,
   f.ior = col[10 * np];
   shade((int)col[7 * np], f.kd, f.emission, f.smoothness, f.reflectivity, f.ior, f.normal, d,
         u1, u2, u3, f.s);
+}
+
+POCA_HD void bounce_body(const float* ts, const float* trt, int np, int w, V3 o, V3 d,
+                         float tmin, float u1, float u2, float u3, BounceFwd& f) {
+  bounce_body_in(ts, trt, np, w, o, d, tmin, POCA_INF, u1, u2, u3, f);
 }

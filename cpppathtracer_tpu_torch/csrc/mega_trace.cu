@@ -171,7 +171,10 @@ __device__ __forceinline__ void mega_paths(const MegaParams& p, int n_work) {
     float u1, u2, u3;
     uniforms3(pix, samp, (uint32_t)(1 + p.start_bounce + b), seed, u1, u2, u3);
     BounceFwd bf;
-    bounce_body(ts, trt, p.n_pad, w, o, d, tmin, u1, u2, u3, bf);
+    // a search that found no object is a miss (w is 0 there, whose recompute
+    // could pass: a ray leaving object 0's surface)
+    bounce_body_in(ts, trt, p.n_pad, w, o, d, tmin, best_t < POCA_INF ? POCA_INF : tmin, u1, u2,
+                   u3, bf);
     const bool hit = bf.hit;
     p.hits[b * R + i] = hit ? w : -1;
     const V3 normal = bf.normal;

@@ -53,6 +53,7 @@ import os
 import torch
 
 from cpppathtracer_tpu_torch.ops import bsdf, fast, intersect, mathx, planar, texture
+from cpppathtracer_tpu_torch.ops.cuda import mega_kernel
 from cpppathtracer_tpu_torch.ops.cuda.wavefront_kernel import (
     bounce_p,
     carry_parts,
@@ -612,6 +613,8 @@ def render_replay(runner: GraphedCall, scene, camera, sky_tex, *, spp: int, max_
         for g in e.order:
             g.replay()
         call.count("replays", len(e.order))
+        for k, v in e.mega_counts.items():
+            call.count(k, v)
         return e
 
 
@@ -650,4 +653,10 @@ def _capture_render(runner, inputs, n_chunks: int, chunk: int, max_depth: int, t
     e.graphs = runner.capture(*chunks, *tails, device=dev)
     g = e.graphs
     e.order = g[:1] + g[1:len(chunks)] * (n_chunks - 1) + g[len(chunks):]
+    # the megakernel's launch shape, read once here and counted by every call's span
+    e.mega_counts = {}
+    if e.prep.use_mega and dev.type == "cuda":
+        with torch.cuda.device(dev):
+            e.mega_counts = mega_kernel.launch_counts(e.prep.gs, e.prep.pix_c.shape[0],
+                                                      with_aux=tex_stack is not None)
     return e

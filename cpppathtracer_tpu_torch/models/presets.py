@@ -1,17 +1,20 @@
 """Named benchmark configurations (counterpart of
 ``cpppathtracer_tpu/models/presets.py``): the same scenes, cameras and
-render settings.  Every constructor takes `device` (the CUDA card by
-default, as every entry point of the port)."""
+render settings, and the port's own `rtow_final`, which also brings its
+sky.  Every constructor takes `device` (the CUDA card by default, as every
+entry point of the port)."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
+import torch
 
 from cpppathtracer_tpu_torch.models.camera import Camera
 from cpppathtracer_tpu_torch.models.scene import SceneBuilder, demo_scene
-from cpppathtracer_tpu_torch.types import MaterialType
+from cpppathtracer_tpu_torch.types import MaterialType, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,6 +26,8 @@ class Preset:
     max_depth: int
     scene_fn: object
     camera_fn: object
+    # the preset's own sky, f32[H, W, 3] on `device`; None: the command's default sky
+    sky_fn: object = None
 
     def build(self, device=None):
         return self.scene_fn(device=device), self.camera_fn(device=device)
@@ -144,6 +149,89 @@ def big_camera(n: int = 1024, w=1024, h=1024, device=None):
                        look_at=(0.0, 0.0, 0.0), view_fov=50.0, device=device)
 
 
+# ---- the final render of "Ray Tracing in One Weekend" (P. Shirley, T. D. Black,
+# S. Hollasch; raytracing.github.io, book 1, v3.2.3, section 13.1 "A Final
+# Render": random_scene() and main()), mapped onto the port's four BSDFs
+
+RTOW_ORIGIN = (13.0, 2.0, 3.0)
+# 10 units (the book's focus distance) from the origin toward (0, 0, 0): the
+# lens focuses at |origin - look_at|
+RTOW_LOOK_AT = (3.36376, 0.51750, 0.77625)
+RTOW_SKY_TOP = (0.5, 0.7, 1.0)
+
+
+def rtow_metal_smoothness(fuzz: float) -> float:
+    """The smoothness whose Phong lobe (exponent 1000**smoothness) is about
+    as wide as the book's fuzz sphere: exponent 2 / fuzz^2, at most 1."""
+    return 1.0 if fuzz <= 0.0 else min(1.0, math.log(2.0 / (fuzz * fuzz)) / math.log(1000.0))
+
+
+def rtow_final_scene(seed: int = 0, half: int = 11, device=None):
+    """The book's `random_scene`: a diffuse ground sphere of radius 1000, a
+    small sphere of radius 0.2 at (a + 0.9 r, 0.2, b + 0.9 r) for a, b in
+    -half ... half - 1 (skipped within 0.9 of (4, 0.2, 0)), diffuse 80%,
+    metal 15%, glass 5%, then three spheres of radius 1.  The book's
+    random_double() is unseeded: here it is `np.random.default_rng(seed)`,
+    drawn in the book's order.  Diffuse is DIFFUSE with kd the albedo;
+    metal METAL with kd the albedo and :func:`rtow_metal_smoothness`;
+    glass GLASS, kd 1, ior 1.5, smoothness 1."""
+    rng = np.random.default_rng(seed)
+    rnd = lambda: float(rng.random())
+    glass = dict(mat_type=MaterialType.GLASS, kd=(1.0, 1.0, 1.0), smoothness=1.0, ior=1.5)
+
+    def metal(albedo, fuzz):
+        return dict(mat_type=MaterialType.METAL, kd=albedo,
+                    smoothness=rtow_metal_smoothness(fuzz))
+
+    b = SceneBuilder()
+    b.add_sphere((0.0, -1000.0, 0.0), 1000.0, kd=(0.5, 0.5, 0.5))
+    for a in range(-half, half):
+        for bz in range(-half, half):
+            choose = rnd()
+            center = (a + 0.9 * rnd(), 0.2, bz + 0.9 * rnd())
+            if math.dist(center, (4.0, 0.2, 0.0)) <= 0.9:
+                continue
+            if choose < 0.8:
+                c1 = (rnd(), rnd(), rnd())
+                c2 = (rnd(), rnd(), rnd())
+                m = dict(kd=tuple(x * y for x, y in zip(c1, c2)))
+            elif choose < 0.95:
+                albedo = (0.5 + 0.5 * rnd(), 0.5 + 0.5 * rnd(), 0.5 + 0.5 * rnd())
+                m = metal(albedo, 0.5 * rnd())
+            else:
+                m = glass
+            b.add_sphere(center, 0.2, **m)
+    b.add_sphere((0.0, 1.0, 0.0), 1.0, **glass)
+    b.add_sphere((-4.0, 1.0, 0.0), 1.0, kd=(0.4, 0.2, 0.1))
+    b.add_sphere((4.0, 1.0, 0.0), 1.0, **metal((0.7, 0.6, 0.5), 0.0))
+    return b.build(device=device)
+
+
+def rtow_final_camera(w=1200, h=800, device=None):
+    """The book's camera: from (13, 2, 3) toward the origin, vertical fov
+    20 degrees, aperture 0.1 (lens radius 0.05), focus distance 10."""
+    return Camera.make(w, h, origin=RTOW_ORIGIN, look_at=RTOW_LOOK_AT, view_fov=20.0,
+                       lens_radius=0.05, device=device)
+
+
+def rtow_sky(height: int = 256, width: int = 512) -> np.ndarray:
+    """The book's sky, white blended to (0.5, 0.7, 1) by 0.5 (1 + dir.y), as
+    a map f32[H, W, 3] for the sky lookup (``ops/texture.py::sky_uv``): at
+    each texel centre (u, v) the direction's |y| is cos(pi (v - 1/2))
+    |sin(2 pi u)|.  The lookup reads (x, y, z) and (-x, -y, z) at one
+    texel, so a downward direction sees its mirror image above the
+    horizon."""
+    v = (np.arange(height, dtype=np.float64) + 0.5) / height
+    u = (np.arange(width, dtype=np.float64) + 0.5) / width
+    t = 0.5 * (1.0 + np.cos(np.pi * (v - 0.5))[:, None] * np.abs(np.sin(2.0 * np.pi * u))[None, :])
+    top = np.asarray(RTOW_SKY_TOP, np.float64)
+    return ((1.0 - t)[..., None] + t[..., None] * top).astype(np.float32)
+
+
+def _rtow_sky_tex(device=None):
+    return torch.from_numpy(rtow_sky()).to(resolve_device(device))
+
+
 def _demo(device=None):
     return demo_scene(seed=0).build(device=device)
 
@@ -159,4 +247,6 @@ PRESETS = {
     "thousand_objects": Preset(
         "thousand_objects", 1024, 1024, 16, 8, big_scene, big_camera
     ),
+    "rtow_final": Preset("rtow_final", 1200, 800, 500, 50, rtow_final_scene, rtow_final_camera,
+                         sky_fn=_rtow_sky_tex),
 }

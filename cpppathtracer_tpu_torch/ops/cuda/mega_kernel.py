@@ -6,8 +6,9 @@ function in plain PyTorch, which the CPU runs and against which the kernel
 is held on the card.
 
 Semantics (`integrator.trace_bounces`' planar body, `cuSrc/path_tracer.cu:
-124-175`): per bounce, the closest hit, its record, hit attributes, PCG4D
-uniforms keyed (seed, pixel, sample, 1 + bounce) and BSDF sampling;
+124-175`): per bounce, the closest hit (none where the search finds no
+object), its record, hit attributes, PCG4D uniforms keyed (seed, pixel,
+sample, 1 + bounce) and BSDF sampling;
 radiance gathers thru * emitted on live hits, thru takes the attenuation,
 a miss ends the path, and the next ray starts at the hit with the sampled
 direction and tmin = BOUNCE_RAY_TMIN.  The sky epilogue is the caller's.
@@ -25,7 +26,7 @@ import torch
 
 from cpppathtracer_tpu_torch.ops import planar
 from cpppathtracer_tpu_torch.ops.cuda import build as kb
-from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import ceil8, winner_index_plain
+from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import ceil8, winner_t_index_plain
 from cpppathtracer_tpu_torch.types import INF, TMIN_BOUNCE, MaterialType
 from cpppathtracer_tpu_torch.utils.rng import seed_word, uniforms4
 
@@ -57,6 +58,20 @@ def check_mega_smem(n_rep: int, n_pad: int, limit: int):
             f"{limit} bytes: give the scene BVH tables (build(bvh=True)), or leave "
             f"POCA_BVH unset so that they are used"
         )
+
+
+def launch_counts(gs, r: int, with_aux: bool = False) -> dict:
+    """The launch shape of ``csrc/mega_trace.cu`` on the grouped scene `gs`
+    over R lanes, on the current card, as the serving span counts it: the
+    bytes one block stages in shared memory (`mega_smem_bytes`) and the
+    blocks resident on an SM (`mega_blocks_sm`, ``poca_mega_info``)."""
+    n_s, n_p, n_c = gs.counts
+    n_rep = max(8, ceil8(n_s) + ceil8(n_p) + ceil8(n_c))  # build_geom_rows' rows
+    n_pad = max(8, ceil8(n_s + n_p + n_c))  # build_tables_T's columns
+    info = (ctypes.c_int * 4)()
+    kb.check(kb.library().poca_mega_info(int(with_aux), r, n_rep, n_pad, ctypes.addressof(info)),
+             "poca_mega_info")
+    return {"mega_smem_bytes": mega_smem_bytes(n_rep, n_pad), "mega_blocks_sm": info[2]}
 
 
 @functools.cache
@@ -194,8 +209,10 @@ def mega_trace_plain(o, d, pixel_idx, sample_idx, seed, geom, ts, trt, *, counts
     hits, aux = [], []
     for b in range(depth):
         tmin = zero + (0.0 if start_bounce + b == 0 else TMIN_BOUNCE)
-        best_i = winner_index_plain(counts, o, d, tmin, tmax, geom)
-        hitrec, mats = planar.gather_epilogue_p(table_s, table_r, o, d, tmin, tmax, best_i)
+        best_t, best_i = winner_t_index_plain(counts, o, d, tmin, tmax, geom)
+        # a search that found no object is a miss: the recompute's window closes there
+        window = torch.where(best_t < INF, tmax, tmin)
+        hitrec, mats = planar.gather_epilogue_p(table_s, table_r, o, d, tmin, window, best_i)
         hit = hitrec["hit"]
         hits.append(torch.where(hit, best_i, torch.full_like(best_i, -1)))
         u1, u2, u3, _ = uniforms4(seed, pixel_idx, sample_idx, 1 + start_bounce + b)

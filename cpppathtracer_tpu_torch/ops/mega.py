@@ -263,12 +263,12 @@ def _trace(o, d, pix, samp, seed, depth, geom, ts, trt, counts, with_aux=False):
 
     def expand(missed, offs, planes, nb):
         """Packed phase outputs (as `run` gives them, nb bounces) back to
-        their lanes, misses filled with 0.0 and hit planes with -1."""
-        back = stream_expand(missed, offs, planes[:10 + nb], [0.0] * 10 + [-1] * nb)
-        aux = planes[10 + nb:]
-        for k in range(0, len(aux), MAX_PLANES):
-            part = aux[k:k + MAX_PLANES]
-            back += stream_expand(missed, offs, part, [0.0] * len(part))
+        their lanes, misses filled with 0.0 and hit planes with -1, in calls
+        of at most MAX_PLANES planes."""
+        fills = [0.0] * 10 + [-1] * nb + [0.0] * (len(planes) - 10 - nb)
+        back = []
+        for k in range(0, len(planes), MAX_PLANES):
+            back += stream_expand(missed, offs, planes[k:k + MAX_PLANES], fills[k:k + MAX_PLANES])
         return back
 
     def halves(planes, n_alive, cut, depth_b, start, first=None):

@@ -1819,3 +1819,96 @@ def test_bvh_wavefront_grads_match_body_on_card(dev, monkeypatch):
         assert float(b.norm()) > 0
         assert float(a @ b / (a.norm() * b.norm())) > 0.9999
         assert abs(float(a.norm() / b.norm()) - 1) < 1e-3
+
+
+def _rtow(dev, w=256, h=256):
+    from cpppathtracer_tpu_torch.models import presets
+
+    scene = presets.rtow_final_scene(device=dev)
+    camera = presets.rtow_final_camera(w, h, device=dev)
+    return scene, camera, torch.from_numpy(presets.rtow_sky()).to(dev)
+
+
+@pytest.mark.gpu
+def test_mega_trace_on_rtow_matches_plain_on_card(dev):
+    """The book's final scene (487 spheres, the ground a sphere of radius
+    1000 at grouped index 0), depth 50, 64K lanes of its lens camera: the
+    kernel's hit planes equal the plain version's on >= 99.9% of lanes,
+    and a search that finds nothing is a miss on both (a lane that leaves
+    the ground and escapes does not hit object 0 instead)."""
+    scene, cam, _ = _rtow(dev)
+    gs = group_scene(scene)
+    pix = torch.arange(R, dtype=torch.int32, device=dev)
+    samp = (pix % 5).to(torch.int32)
+    o, d = cam.ray_gen_planar(pix, samp, 11)
+    ts, trt = build_tables_T(gs)
+    args = (tuple(c.contiguous() for c in o), tuple(c.contiguous() for c in d), pix, samp, 11,
+            build_geom_rows(gs), ts, trt)
+    got = mega_trace(*args, counts=gs.counts, depth=50)
+    ref = mega_trace_plain(*args, counts=gs.counts, depth=50)
+    hg, hr = torch.stack(got[6]), torch.stack(ref[6])
+    assert float((hg == hr).all(0).float().mean()) >= 0.999
+    assert int((hg >= 0).sum(0).max()) > 9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which,smem,blocks", [("rtow", 48_800, 4), ("demo", 9_856, 7)])
+def test_render_span_counts_mega_launch_shape_on_card(dev, which, smem, blocks):
+    """Under a profile, every `render_radiance_jit` call's `render.call`
+    span counts #1's shared memory a block and its blocks an SM, read once
+    at capture: 4 blocks at the book's 487 spheres (shared memory bounds
+    them), 7 on demo_scene(0) (registers do)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpppathtracer_tpu_torch import integrator
+    from cpppathtracer_tpu_torch.ops.texture import procedural_sky
+    from cpppathtracer_tpu_torch.utils import obs
+
+    if which == "rtow":
+        scene, cam, sky = _rtow(dev, 64, 48)
+    else:
+        scene = demo_scene(0).build(device=dev)
+        cam = Camera.make(64, 48, origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0), device=dev)
+        sky = torch.from_numpy(procedural_sky(64, 64)).to(dev)
+    integrator.RENDER_GRAPHS.clear()
+    obs.clear_spans()
+    try:
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]):
+            for seed in (1, 2):
+                integrator.render_radiance_jit(scene, cam, sky, spp=2, max_depth=4, seed=seed)
+            torch.cuda.synchronize()
+        calls = [r for r in obs.spans() if r["name"] == "render.call"]
+        assert len(calls) == 2
+        for r in calls:
+            assert r["counts"]["mega_smem_bytes"] == smem
+            assert r["counts"]["mega_blocks_sm"] == blocks
+    finally:
+        integrator.RENDER_GRAPHS.clear()
+        obs.clear_spans()
+
+
+@pytest.mark.gpu
+def test_rtow_depth_50_sample_split_matches_unsplit_on_card(dev, monkeypatch):
+    """A depth-50 sample of the book's scene (256^2 lanes) through the
+    split trace, whose phase B returns 10 + 48 planes to their lanes in two
+    calls of #6 (32 planes at most a call), against the unsplit trace: hit
+    planes, missed and the first-hit buffers bitwise equal, radiance within
+    5e-7."""
+    scene, cam, _ = _rtow(dev)
+    gs = group_scene(scene)
+    pix = torch.arange(256 * 256, dtype=torch.int32, device=dev)
+
+    def sample(split):
+        monkeypatch.setenv("POCA_MEGA_SPLIT", split)
+        kb.reset_launches()
+        with torch.no_grad():
+            out = mega.mega_sample(gs, cam, pix, 3, 17, 50)
+        torch.cuda.synchronize()
+        return out, dict(kb.LAUNCHES)
+
+    (split, n_split), (whole, n_whole) = sample("2"), sample("0")
+    assert n_split["stream_expand"] == 2 and n_whole.get("stream_expand", 0) == 0
+    paths = lambda s: [s[3], *s[4], s[5], *s[6]]
+    assert all(torch.equal(a, b) for a, b in zip(paths(split), paths(whole)))
+    for k in range(3):
+        assert torch.allclose(split[0][k], whole[0][k], rtol=5e-7, atol=5e-7)
