@@ -27,6 +27,9 @@ from cpppathtracer_tpu_torch.types import MaterialType, PrimitiveType, resolve_d
 # the JAX package (`models/scene.py:42`), and take the wavefront path.
 AUTO_BVH_THRESHOLD = 2048
 
+# The metadata of a field that holds a plain value, never a tensor.
+_PLAIN = {"static": True}
+
 
 def type_partition(prim_type: np.ndarray) -> tuple[tuple, tuple]:
     """(type_perm, type_counts) of objects with these prim_types: the
@@ -58,14 +61,16 @@ class Scene:
     reflectivity: torch.Tensor  # f32[N]
     ior: torch.Tensor  # f32[N]
     tex_id: torch.Tensor  # i32[N]
-    type_perm: tuple = ()
-    type_counts: tuple = ()
+    # plain values, never tensors: the compiled calls take them whole
+    # (utils/graphs.py), as one leaf of the key and nothing to copy
+    type_perm: tuple = dataclasses.field(default=(), metadata=_PLAIN)
+    type_counts: tuple = dataclasses.field(default=(), metadata=_PLAIN)
     # skip-pointer BVH over the grouped order (with_bvh), None when absent;
     # bvh_dims = (M nodes, K leaf size)
     bvh_meta: torch.Tensor | None = None  # i32[M,2] (escape, leaf_id)
     bvh_aabb: torch.Tensor | None = None  # f32[M,8] (min.xyz, max.xyz, pad)
     bvh_objs: torch.Tensor | None = None  # f32[L*K,8] leaf object rows
-    bvh_dims: tuple = ()
+    bvh_dims: tuple = dataclasses.field(default=(), metadata=_PLAIN)
     # the walk kernel's layout of the tables (bvh_leaf_layout), made with them
     bvh_layout: tuple | None = None
 

@@ -5,6 +5,7 @@ capture that runs the body, on every render route and on the progressive
 frame.  The captures themselves need a card: ``tests/test_torch_cuda.py``."""
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +15,7 @@ import torch
 from cpppathtracer_tpu.integrator import render_radiance_jit as j_render_radiance_jit
 from cpppathtracer_tpu.models.camera import Camera as JCamera
 from cpppathtracer_tpu.ops.texture import procedural_sky
+from cpppathtracer_tpu_torch import integrator, inverse, renderer
 from cpppathtracer_tpu_torch.integrator import (
     render_graphed,
     render_key,
@@ -30,7 +32,16 @@ from cpppathtracer_tpu_torch.renderer import (
     RenderConfig,
     frame_step,
 )
-from cpppathtracer_tpu_torch.utils.graphs import GraphedCall
+from cpppathtracer_tpu_torch.utils import obs
+from cpppathtracer_tpu_torch.utils.graphs import (
+    Entry,
+    GraphedCall,
+    copy_into,
+    map_tensors,
+    signature,
+    static_twin,
+    tensors,
+)
 
 from torch_port_helpers import (
     RunBody,
@@ -298,3 +309,168 @@ def test_graph_keeps_the_buffers_its_body_reads():
     del graph
     gc.collect()
     assert ref() is None
+
+
+# ---- the structure walks: plain-value fields taken whole
+
+
+def _ref_signature(obj):
+    """The key's walk written out element by element, into every field."""
+    if isinstance(obj, torch.Tensor):
+        return ("tensor", tuple(obj.shape), obj.dtype, obj.device)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return (type(obj).__name__,) + tuple(
+            (f.name, _ref_signature(getattr(obj, f.name))) for f in dataclasses.fields(obj))
+    if isinstance(obj, (tuple, list)):
+        return tuple(_ref_signature(x) for x in obj)
+    if isinstance(obj, dict):
+        return tuple((k, _ref_signature(v)) for k, v in obj.items())
+    return obj
+
+
+def _ref_tensors(obj):
+    """The tensors' walk written out element by element, into every field."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return [t for f in dataclasses.fields(obj) for t in _ref_tensors(getattr(obj, f.name))]
+    if isinstance(obj, tuple):
+        return [t for x in obj for t in _ref_tensors(x)]
+    if isinstance(obj, dict):
+        return [t for x in obj.values() for t in _ref_tensors(x)]
+    return []
+
+
+@functools.cache
+def _big(n):
+    """A BVH scene of n objects with the three callers' inputs: the render's
+    (scene, camera, sky), a progressive renderer, and the training step's
+    (camera, config, params, Adam state, scene, sky, target)."""
+    scene = big_scene(n, bvh=True, device="cpu")
+    cam = big_camera(n, 16, 12, device="cpu")
+    sky = torch.from_numpy(procedural_sky(8, 8, seed=3))
+    viewer = ProgressiveRenderer(scene, cam, sky, RenderConfig(width=16, height=12, max_depth=2))
+    cfg = inverse.InverseConfig(spp=1, max_depth=2, fields=("kd", "emission"))
+    params, opt = inverse.make_train_step(cam, cfg)[0](scene, sky)
+    target = torch.zeros(12 * 16, 3)
+    return scene, cam, sky, viewer, (cam, cfg, params, opt, scene, sky, target)
+
+
+KEYS = {
+    "render": (integrator, lambda b: render_key(*b[:3], spp=2, max_depth=3)),
+    "frame": (renderer, lambda b: b[3].frame_key()),
+    "train": (inverse, lambda b: inverse.train_key(*b[4])),
+}
+
+
+@pytest.mark.parametrize("name", list(KEYS))
+def test_keys_equal_the_element_by_element_walk(monkeypatch, name):
+    """render_key, the progressive frame's key and the training step's key
+    on big_scene(2048) equal, value for value, the keys of a walk into
+    every field: a tuple of ints was always its own signature."""
+    module, make = KEYS[name]
+    b = _big(2048)
+    got = make(b)
+    monkeypatch.setattr(module, "signature", _ref_signature)
+    ref = make(b)
+    assert got == ref and hash(got) == hash(ref)
+    assert dict(signature(b[0])[1:])["type_perm"] is b[0].type_perm
+
+
+INPUTS = {
+    "render": lambda b: (b[0], b[1], b[2], None, None),
+    "frame": lambda b: ((b[3].scene, b[3].camera, b[3].sky_tex), b[3].state.mix),
+    "train": lambda b: (b[4][2], b[4][3], (b[4][4], b[4][5], b[4][6], b[4][0])),
+}
+
+
+@pytest.mark.parametrize("name", list(INPUTS))
+def test_tensors_equal_the_element_by_element_walk(name):
+    """tensors() gives the same tensors, in the same order, as a walk into
+    every field, on each caller's inputs."""
+    inputs = INPUTS[name](_big(2048))
+    got, ref = list(tensors(inputs)), _ref_tensors(inputs)
+    assert len(got) == len(ref) > 20 and all(a is b for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("field", ["type_perm", "type_counts"])
+def test_scenes_that_differ_in_a_plain_field_get_different_keys(field):
+    """The captured graph bakes in the object order and the type counts, so
+    two scenes of the same shapes that differ only there get two keys."""
+    scene, cam, sky = _big(2048)[:3]
+    value = getattr(scene, field)
+    other = value[1::-1] + value[2:] if field == "type_perm" else (value[0] - 1, value[1],
+                                                                   value[2] + 1)
+    moved = dataclasses.replace(scene, **{field: other})
+    kw = dict(spp=2, max_depth=3)
+    assert render_key(moved, cam, sky, **kw) != render_key(scene, cam, sky, **kw)
+    assert signature(moved) != signature(scene)
+
+
+def _walk_counts(n, span):
+    """The counts of one `span` (graphs.entry or graphs.copy_in) around the
+    render key's walk and the copy's, on big_scene(n), under a profile."""
+    scene, cam, sky = _big(n)[:3]
+    inputs = (scene, cam, sky, None, None)
+    runner = GraphedCall(backend=RunBody())
+    obs.clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        runner.entry(lambda: render_key(scene, cam, sky, spp=2, max_depth=3), lambda r: Entry())
+        with obs.span("graphs.copy_in") as sp:
+            copy_into(static_twin(inputs), inputs, sp)
+    (rec,) = [r for r in obs.spans() if r["name"] == span]
+    obs.clear_spans()
+    return rec["counts"]
+
+
+@pytest.mark.parametrize("span", ["graphs.entry", "graphs.copy_in"])
+def test_walked_counts_do_not_grow_with_the_scene(span):
+    """Under an open span the walks visit as many nodes on big_scene(8192)
+    as on big_scene(2048), a few dozen, and the key takes the scene's
+    three plain fields whole."""
+    small, large = _walk_counts(2048, span), _walk_counts(8192, span)
+    assert small["walked"] == large["walked"] < 100
+    if span == "graphs.entry":
+        assert small["whole"] == large["whole"] == 3
+    else:
+        assert "whole" not in small and small["tensors"] == large["tensors"]
+
+
+WALKS = {
+    "signature": signature,
+    "tensors": lambda x: list(tensors(x)),
+    "map_tensors": lambda x: map_tensors(x, torch.clone),
+    "copy_into": lambda x: copy_into(x, x),
+}
+
+
+@pytest.mark.parametrize("walk", list(WALKS))
+def test_plain_field_holding_a_tensor_raises(walk):
+    """A field declared a plain value that holds a tensor raises TypeError,
+    naming the field, in every walk: none skips it silently."""
+    scene = _big(2048)[0]
+    bad = dataclasses.replace(scene, type_counts=torch.tensor(scene.type_counts))
+    with pytest.raises(TypeError, match="type_counts"):
+        WALKS[walk]((bad, None))
+
+
+def test_copy_into_copies_every_walked_tensor():
+    """copy_into copies every tensor of the walk into every field (the BVH
+    tables and the walk kernel's layout among them), by its `tensors` and
+    `bytes` counts and by the buffers' values."""
+    scene, cam, sky = _big(2048)[:3]
+    inputs = (scene, cam, sky)
+    static = map_tensors(inputs, torch.zeros_like)
+    ref = _ref_tensors(inputs)
+    obs.clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with obs.span("graphs.copy_in") as sp:
+            copy_into(static, inputs, sp)
+    (rec,) = obs.spans()
+    obs.clear_spans()
+    assert rec["counts"]["tensors"] == len(ref)
+    assert rec["counts"]["bytes"] == sum(t.nbytes for t in ref)
+    # bit for bit: the walk's node rows hold ints as float bits, some NaN
+    assert all(a.numpy().tobytes() == b.numpy().tobytes()
+               for a, b in zip(_ref_tensors(static), ref, strict=True))
+    assert static[0].type_perm is scene.type_perm

@@ -39,7 +39,7 @@ from cpppathtracer_tpu_torch.parallel.render import (
 from cpppathtracer_tpu_torch.types import MaterialType
 from cpppathtracer_tpu_torch.utils.graphs import GraphedCall, tensors
 
-from torch_port_helpers import RunBody, port_camera, port_scene, port_sky
+from torch_port_helpers import RunBody, port_camera, port_scene, port_sky, walk_nodes
 
 torch.set_num_threads(1)
 
@@ -280,9 +280,10 @@ def test_two_distinct_devices_take_a_body_each():
 def test_sharded_step_spans_share_its_call():
     """Under a profiler a compiled step over two distinct devices records
     one `mesh.step` whose call id every span inside it shares: the entry
-    (a hit once captured), the copies in, the exchange across devices (the
-    count's copy and the other device's tiles going out, its flat results
-    coming back, their bytes counted) and the reduce's replay."""
+    (a hit once captured, its key's walk counted), the copies in, the
+    exchange across devices (the count's copy and the other device's tiles
+    going out, its flat results coming back, their bytes counted) and the
+    reduce's replay."""
     from torch.profiler import ProfilerActivity, profile
 
     from cpppathtracer_tpu_torch.utils import obs
@@ -306,7 +307,8 @@ def test_sharded_step_spans_share_its_call():
     assert names == ["graphs.entry", "graphs.copy_in", "graphs.copy_in", "graphs.replay",
                      "mesh.exchange", "graphs.replay", "graphs.replay", "mesh.exchange",
                      "mesh.reduce", "graphs.replay"]
-    assert recs[1]["counts"] == {"hit": 1}
+    walked = walk_nodes((params, (scene, cam, sky, pix, tgt))) + walk_nodes(opt)
+    assert recs[1]["counts"] == {"hit": 1, "walked": walked, "whole": 3}
     other = torch.device("cpu:0")
     tiles = [t for (dev, _, _), t in zip(e.tiles, e.tile_in) if dev == other]
     assert [r["counts"]["bytes"] for r in recs if r["name"] == "mesh.exchange"] == [
