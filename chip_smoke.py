@@ -36,8 +36,7 @@ intersect, flat and 2-D; a route A training step against the planar
 wavefront's gradients; the stack BVH of big_scene(16384): native against
 NumPy build, intersect_bvh against the skip-pointer walk, refit against a
 rebuild), then phase 11: the megakernel's backward in its textured form
-(mega_bwd(ct_aux=...)) against its plain version, the phase-B schedules
-of JAX's ladder and second split against the single launch, and route A
+(mega_bwd(ct_aux=...)) against its plain version, and route A
 on big_scene(16384), whose rows the dense launch stages in tiles, then
 phase 12: the bench entry point (``python -m cpppathtracer_tpu_torch
 bench`` and ``python bench_torch.py`` in subprocesses, and
@@ -1892,79 +1891,6 @@ def route_a_tiled_phase(dev, sky):
                 registers=regs, local_bytes=local, blocks_per_sm=per_sm)
 
 
-def ladder_phase(dev, scene, camera, sky):
-    """Phase 11 (c): the JAX package's static-prefix ladder and second split
-    of phase B (ops/mega.py, POCA_MEGA_LADDER / POCA_MEGA_SPLIT2 /
-    POCA_MEGA_PREFIX2) against the single phase-B launch, on the demo scene
-    at 1024^2 x d8: one sample of each schedule and the unsplit trace
-    (POCA_MEGA_SPLIT=0) through mega_sample: hit planes, missed, first_n and
-    first_t bitwise equal, radiance within 5e-7 absolute and relative
-    (tests/test_mega.py:327); PREFIX2 bitwise equal to the second split,
-    the ladder alone to the single launch; device ms per sample
-    (torch.profiler) and launches of each, and the 1024^2 x 4 spp x d8
-    render's wall time; the card's default (ops/mega.py::_CARD_LADDER) may
-    be no more than 5% slower in device time than the other schedule."""
-    from cpppathtracer_tpu_torch.integrator import render_radiance
-    from cpppathtracer_tpu_torch.ops import mega
-    from cpppathtracer_tpu_torch.ops.cuda import build as kb
-    from cpppathtracer_tpu_torch.ops.fast import group_scene
-
-    r = W * H
-    gs = group_scene(scene)
-    pix = torch.arange(r, dtype=torch.int32, device=dev)
-    schedules = {
-        "unsplit": dict(POCA_MEGA_SPLIT="0"),
-        "one launch": dict(POCA_MEGA_LADDER="0"),
-        "ladder": dict(POCA_MEGA_LADDER="1", POCA_MEGA_SPLIT2="0"),
-        "ladder + split2": dict(POCA_MEGA_LADDER="1", POCA_MEGA_SPLIT2="1"),
-        "prefix2": dict(POCA_MEGA_LADDER="1", POCA_MEGA_SPLIT2="1", POCA_MEGA_PREFIX2="1"),
-    }
-    sample = lambda: mega.mega_sample(gs, camera, pix, 0, 0, DEPTH)
-    planes = lambda s: [*s[0], *s[1], *s[2], s[3], *s[4], s[5], *s[6]]
-    out, stats = {}, {}
-    for name, switches in schedules.items():
-        with torch.no_grad(), env(**switches):
-            kb.reset_launches()
-            out[name] = sample()
-            torch.cuda.synchronize()
-            launches = {k: v for k, v in kb.LAUNCHES.items() if v}
-            dev_ms, by_kernel = device_ms(sample, iters=10)
-            ms = time_ms(sample, iters=10)
-            render_radiance(scene, camera, sky, spp=1, max_depth=DEPTH, seed=0)  # warm-up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            render_radiance(scene, camera, sky, spp=4, max_depth=DEPTH, seed=0)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / 4
-        stats[name] = dev_ms
-        log(f"[split2] {name} ({switches}): one 1024^2 x d{DEPTH} sample, device {dev_ms:.4f} ms "
-            f"(torch.profiler; ms a call, records kept and launches of 10 calls by name {by_kernel}), {ms:.4f} ms "
-            f"by CUDA events, launches {launches}; "
-            f"the 4-spp render {wall:.3f} ms/sample wall")
-    ref = out["unsplit"]
-    paths = lambda s: [s[3], *s[4], s[5], *s[6]]
-    same_paths = {n: all(torch.equal(bits(a), bits(b)) for a, b in zip(paths(s), paths(ref)))
-                  for n, s in out.items()}
-    rad_err = {n: max(float(((a - b).abs() / (5e-7 + 5e-7 * b.abs())).max()) for a, b in
-                      zip(s[0], ref[0])) for n, s in out.items()}
-    same_pre = same_bits(planes(out["prefix2"]), planes(out["ladder + split2"]))
-    same_lad = same_bits(planes(out["ladder"]), planes(out["one launch"]))
-    log(f"[check] against the unsplit trace: paths bitwise {same_paths}; radiance's largest "
-        f"|diff| / (5e-7 + 5e-7 |x|) {rad_err}; PREFIX2 bitwise equal to the second split "
-        f"{same_pre}; the ladder alone bitwise equal to the single launch {same_lad}")
-    if not (all(same_paths.values()) and max(rad_err.values()) <= 1 and same_pre and same_lad):
-        raise AssertionError("the ladder or the second split changed a path or the radiance")
-    default = "ladder + split2" if mega._CARD_LADDER else "one launch"
-    other = "one launch" if mega._CARD_LADDER else "ladder + split2"
-    faster = min((default, other), key=stats.get)
-    log(f"[split2] device ms per sample: the single phase-B launch {stats['one launch']:.4f}, the "
-        f"ladder and second split {stats['ladder + split2']:.4f}; faster in this run: {faster}; "
-        f"the card's default: {default}")
-    if stats[default] > 1.05 * stats[other]:
-        raise AssertionError(f"the card's default schedule ({default}) is more than 5% slower "
-                             f"than {other}")
-
-
 def same_fields(a, b):
     """Every field of two dataclasses equal, tensors bitwise."""
     return all(torch.equal(bits(x), bits(y)) if isinstance(x, torch.Tensor) else x == y
@@ -3545,10 +3471,8 @@ def main():
     # ---- phase 10: the row-major body (routes A and B) and the stack BVH
     route_a = rowmajor_phase(dev, sky)
     next(k for k in kernels if k["name"] == "winner_index").update(route_a)
-    # ---- phase 11: the textured backward on the card, route A past one tile of rows,
-    # the ladder and second split of phase B
+    # ---- phase 11: the textured backward on the card, route A past one tile of rows
     kernels.append(textured_bwd_phase(dev, trace_args, gs, *tex_bwd))
-    ladder_phase(dev, scene, camera, sky)
     kernels.append(route_a_tiled_phase(dev, sky))
     # ---- phase 12: the bench entry point and the dense-vs-BVH crossover harness
     bench_phase(dev, card, scene, camera, sky, (loss, g_kd, g_em))

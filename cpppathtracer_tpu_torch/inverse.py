@@ -102,7 +102,7 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 
 def adam_init(params) -> AdamState:
     """optax.adam's init: zero moments and a zero count."""
-    dev = next(tensors(params)).device
+    dev = tensors(params)[0].device
     zeros = lambda: map_tensors(params, lambda v: torch.zeros_like(v.detach()))
     return AdamState(mu=zeros(), nu=zeros(), count=torch.zeros((), dtype=torch.int32, device=dev))
 
@@ -153,7 +153,7 @@ def _step(camera, cfg: InverseConfig, optimizer: Optimizer, params, opt, scene, 
     scene = scene.with_material_params({**scene.material_params(), **params["mat"]})
     rad = render_for_loss(scene, camera, params.get("sky", sky_tex), cfg, sample_offset)
     loss = torch.mean((rad - target) ** 2)
-    grads = iter(torch.autograd.grad(loss, list(tensors(params))))
+    grads = iter(torch.autograd.grad(loss, tensors(params)))
     optimizer.update(params, map_tensors(params, lambda _: next(grads)), opt)
     return loss.detach()
 

@@ -16,19 +16,13 @@ RNG keys are per (pixel, sample, bounce), so the traced paths are bitwise
 those of the unsplit trace; radiance differs only in the order of its
 float32 sum.
 
-Phase B can also run as the JAX package's static-prefix ladder and second
-split (`ops/mega.py:454-691`): B1 over the first quarter of the packed
-lanes, B2 over the rest with n_alive less that quarter (the kernel traces
-no lane when that is <= 0, in place of JAX's lax.cond, so no count is
-read on the host), and inside B1 two bounces, a second compaction of the
-rays still alive and the remaining bounces over the re-packed quarter
-(POCA_MEGA_PREFIX2=1: over its first half, plus a spill launch over the
-second), expanded back to the quarter.  JAX's switches choose it:
-POCA_MEGA_SPLIT (the split bounce, 0 for none), POCA_MEGA_LADDER and
-POCA_MEGA_SPLIT2 (0 or 1), POCA_MEGA_PREFIX2.  Unset, the ladder follows
-JAX's defaults: off on the CPU, as in JAX's interpret mode; on the card,
-_CARD_LADDER, the faster schedule of ``chip_smoke.py``'s measurement
-(PERF.md).  The second split defaults to on wherever the ladder is.
+The JAX package can also schedule phase B as a static-prefix ladder with
+a second split (`ops/mega.py:454-691`), a TPU tuning schedule that the
+port does not have, nor the switches that choose it: the port runs phase
+B as one launch over every packed lane.  On the H100 a 1024^2 x d8 demo
+sample took 1.6979-1.7057 ms of device time with the ladder and second
+split, and 1.5338-1.5399 ms with the single launch (README).
+POCA_MEGA_SPLIT, the split bounce (0 for an unsplit trace), is honoured.
 
 Backward: the forward saves only the primary rays, the record tables and
 the per-bounce winner planes (i32[depth, R], the winner's grouped index on
@@ -67,11 +61,6 @@ from cpppathtracer_tpu_torch.utils.rng import sample_key, uniforms4
 
 _MEGA_TILE = 1024
 _SPLIT = 2
-# The ladder's default on the card (module docstring): the single phase-B
-# launch measured faster on the H100 (PERF.md).
-_CARD_LADDER = False
-# mega_trace.cu's lanes per block: the unit of POCA_MEGA_PREFIX2's prefix
-_LANE_BLOCK = 128
 
 
 def _pick_tile(r: int) -> int:
@@ -92,37 +81,6 @@ def _split_plan(r: int, depth: int) -> int:
     tile = min(_MEGA_TILE, _pick_tile(r))
     r_pad = -(-r // tile) * tile
     return split if split > 0 and depth - split >= 2 and r_pad >= 4 * tile else 0
-
-
-def _switch(name: str, default: bool) -> bool:
-    """A 0/1 environment switch; unset or any other value gives `default`."""
-    env = os.environ.get(name, "")
-    return env == "1" if env in ("0", "1") else default
-
-
-def _ladder_plan(r: int, depth: int, split: int, device) -> tuple[int, bool, int]:
-    """Phase B's schedule, JAX's rule (`ops/mega.py:336-348`, `:454-527`):
-    (r_q, split2, r_q2).  r_q, the ladder's quarter prefix (0: one phase-B
-    launch over every packed lane); split2, whether B1 splits again after
-    two bounces; r_q2, the prefix of stage 2 under POCA_MEGA_PREFIX2=1 (r_q
-    otherwise): half the quarter, in whole kernel blocks."""
-    tile = min(_MEGA_TILE, _pick_tile(r))
-    r_pad = -(-r // tile) * tile
-    chunk = next((c for c in (8192, 4096, 2048, 1024) if r_pad >= 4 * c or
-                  (c == 1024 and r_pad >= c)), 0)
-    if chunk and r_pad % chunk:
-        r_pad = -(-r_pad // chunk) * chunk
-    r_q = (r_pad // 4) // tile * tile
-    ladder = r_q >= tile and r_pad - r_q >= tile and r_q < r and _switch(
-        "POCA_MEGA_LADDER", _CARD_LADDER and torch.device(device).type == "cuda")
-    if not ladder:
-        return 0, False, 0
-    chunk2 = next((c for c in (chunk, 4096, 2048, 1024) if c <= chunk and r_q % c == 0), 0)
-    split2 = depth - split >= 4 and chunk2 > 0 and _switch("POCA_MEGA_SPLIT2", True)
-    r_q2 = r_q
-    if split2 and os.environ.get("POCA_MEGA_PREFIX2", "") == "1":
-        r_q2 = (r_q // 2) // _LANE_BLOCK * _LANE_BLOCK or r_q
-    return r_q, split2, r_q2
 
 
 # ------------------------------------------------------------------ replay
@@ -234,7 +192,7 @@ def replay_vjp(o, d, pixel_idx, sample_idx, seed, ts, trt, hits, ct, *, ct_aux=N
 
 def _trace(o, d, pix, samp, seed, depth, geom, ts, trt, counts, with_aux=False):
     """The megakernel's forward of one sample, split where `_split_plan`
-    says, its phase B scheduled as `_ladder_plan` says.  Returns (rad,
+    says, its phase B one launch over the packed lanes.  Returns (rad,
     miss_dir, miss_thru, missed, first_n, first_t, hit planes, aux planes:
     4 per bounce (pos vec3, att) with `with_aux`, else none).  Phase B's
     aux planes return to their pixels with fill 0.0, as its other outputs
@@ -243,40 +201,12 @@ def _trace(o, d, pix, samp, seed, depth, geom, ts, trt, counts, with_aux=False):
     trace = lambda *a, **kw: mega_trace(*a, geom, ts, trt, counts=counts, with_aux=with_aux,
                                         **kw)
     flat_aux = lambda aux: [c for pos, att in aux for c in (*pos, att)] if with_aux else []
-    r = pix.shape[0]
-    split = _split_plan(r, depth)
+    split = _split_plan(pix.shape[0], depth)
     if not split:
         rad, miss_dir, miss_thru, missed, first_n, first_t, hit_idx, aux = trace(
             o, d, pix, samp, seed, depth=depth
         )
         return rad, miss_dir, miss_thru, missed, first_n, first_t, hit_idx, flat_aux(aux)
-
-    def run(planes, n_alive, depth_b, start, with_o=False):
-        """Bounces [start, start + depth_b) of packed lanes (pix, samp, o3,
-        d3, thru3, alive mask): the trace's outputs as planes (rad3, miss_dir3,
-        miss_thru3, missed, hits, aux), and the final origin with `with_o`."""
-        out = trace(tuple(planes[2:5]), tuple(planes[5:8]), planes[0], planes[1], seed,
-                    depth=depth_b, start_bounce=start, thru=tuple(planes[8:11]),
-                    n_alive=n_alive, alive_mask=planes[11], with_o=with_o)
-        flat = [*out[0], *out[1], *out[2], out[3], *out[6], *flat_aux(out[7])]
-        return (flat, out[8]) if with_o else flat
-
-    def expand(missed, offs, planes, nb):
-        """Packed phase outputs (as `run` gives them, nb bounces) back to
-        their lanes, misses filled with 0.0 and hit planes with -1, in calls
-        of at most MAX_PLANES planes."""
-        fills = [0.0] * 10 + [-1] * nb + [0.0] * (len(planes) - 10 - nb)
-        back = []
-        for k in range(0, len(planes), MAX_PLANES):
-            back += stream_expand(missed, offs, planes[k:k + MAX_PLANES], fills[k:k + MAX_PLANES])
-        return back
-
-    def halves(planes, n_alive, cut, depth_b, start, first=None):
-        """`run` over lanes [0, cut) (or `first` there) and [cut, R), the
-        second with n_alive - cut, joined."""
-        head = (first or run)([p[:cut] for p in planes], n_alive, depth_b, start)
-        tail = run([p[cut:] for p in planes], n_alive - cut, depth_b, start)
-        return [torch.cat((a, b)) for a, b in zip(head, tail)]
 
     (rad_a, d_a, thru_a, missed_a, first_n, first_t, hit_a, aux_a, o_a) = trace(
         o, d, pix, samp, seed, depth=split, with_o=True
@@ -284,35 +214,19 @@ def _trace(o, d, pix, samp, seed, depth, geom, ts, trt, counts, with_aux=False):
     packed, offs, n_alive = stream_compact(
         missed_a, [pix, samp, *o_a, *d_a, *thru_a, missed_a]
     )
+    # phase B: bounces [split, depth) of the packed lanes (pix, samp, o3, d3,
+    # thru3, alive mask), its outputs as planes (rad3, miss_dir3, miss_thru3,
+    # missed, hits, aux)
     nb = depth - split
-    r_q, split2, r_q2 = _ladder_plan(r, depth, split, pix.device)
-
-    def nested(planes, n_alive_b, depth_b, start):
-        """B1 with the second split: two bounces, a compaction of the lanes
-        still alive, the rest on the re-packed lanes (over [0, r_q2) and
-        [r_q2, r_q) when r_q2 < r_q), expanded back (JAX `run_b_nested`)."""
-        one, o2 = run(planes, n_alive_b, 2, start, with_o=True)
-        lane = torch.arange(planes[0].shape[0], device=planes[0].device)
-        alive2 = (lane < n_alive_b) & (planes[11] == 0.0) & (one[9] == 0.0)
-        mask2 = (~alive2).to(torch.float32)
-        packed2, offs2, n_alive2 = stream_compact(mask2, [*planes[:2], *o2, *one[3:9], mask2])
-        nb2 = depth_b - 2
-        if r_q2 < r_q:
-            two = halves(packed2, n_alive2, r_q2, nb2, start + 2)
-        else:
-            two = run(packed2, n_alive2, nb2, start + 2)
-        back = expand(mask2, offs2, two, nb2)
-        live2 = mask2 == 0.0
-        return ([one[k] + back[k] for k in range(3)]
-                + [torch.where(live2, back[k], one[k]) for k in range(3, 9)]
-                + [one[9] + back[9]] + one[10:12] + back[10:10 + nb2]
-                + one[12:] + back[10 + nb2:])
-
-    if r_q:
-        b = halves(packed, n_alive, r_q, nb, split, first=nested if split2 else None)
-    else:
-        b = run(packed, n_alive, nb, split)
-    back = expand(missed_a, offs, b, nb)
+    out = trace(tuple(packed[2:5]), tuple(packed[5:8]), packed[0], packed[1], seed, depth=nb,
+                start_bounce=split, thru=tuple(packed[8:11]), n_alive=n_alive,
+                alive_mask=packed[11])
+    planes = [*out[0], *out[1], *out[2], out[3], *out[6], *flat_aux(out[7])]
+    # back to their lanes, misses filled with 0.0 and hit planes with -1
+    fills = [0.0] * 10 + [-1] * nb + [0.0] * (len(planes) - 10 - nb)
+    back = []
+    for k in range(0, len(planes), MAX_PLANES):
+        back += stream_expand(missed_a, offs, planes[k:k + MAX_PLANES], fills[k:k + MAX_PLANES])
     a_dead = missed_a > 0.0
     rad = tuple(rad_a[k] + back[k] for k in range(3))
     miss_dir = tuple(torch.where(a_dead, d_a[k], back[3 + k]) for k in range(3))

@@ -37,7 +37,6 @@ distributed.host_tile_rows` gives its rank, over its own mesh, and
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 import weakref
 
@@ -53,6 +52,7 @@ from cpppathtracer_tpu_torch.utils.graphs import (
     GraphedCall,
     copy_into,
     env_switches,
+    map_tensors,
     signature,
     static_twin,
 )
@@ -75,18 +75,10 @@ def tile_graphs(mesh: TileMesh, backend=None) -> GraphedCall:
 
 
 def to_device(obj, device):
-    """`obj` (a tensor, or a dataclass or tuple holding tensors, such as a
-    Scene or a Camera) with its tensors on `device`; through autograd, so
-    gradients flow back to the original."""
-    if isinstance(obj, torch.Tensor):
-        return obj.to(device)
-    if isinstance(obj, tuple):
-        return tuple(to_device(x, device) for x in obj)
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return dataclasses.replace(obj, **{
-            f.name: to_device(getattr(obj, f.name), device) for f in dataclasses.fields(obj)
-        })
-    return obj
+    """`obj` (a tensor, or a structure holding tensors, such as a Scene or
+    a Camera) with its tensors on `device`; through autograd, so gradients
+    flow back to the original."""
+    return map_tensors(obj, lambda t: t.to(device))
 
 
 def _tile_render(scene, camera, sky_tex, pixel_idx_tile, spp, max_depth, seed, runner=None):
@@ -154,8 +146,7 @@ def render_tiles(runner, scene, camera, sky_tex, mesh: TileMesh, *, spp, max_dep
     rows = process_rows(camera.height)
     grid = global_pixel_grid(camera, mesh, rows)
     with torch.no_grad():  # serving
-        reps = {dev: (to_device(scene, dev), to_device(camera, dev), to_device(sky_tex, dev),
-                      to_device(seed, dev))
+        reps = {dev: to_device((scene, camera, sky_tex, seed), dev)
                 for dev in mesh.distinct_devices()}
         outs = [_tile_render(*reps[dev][:3], grid[ys, xs].to(dev), spp, max_depth, reps[dev][3],
                              runner)
@@ -203,9 +194,8 @@ def make_sharded_loss(mesh: TileMesh, spp: int, max_depth: int, seed: int = 0):
         out = mesh.first_device
         reps = {}
         for dev in mesh.distinct_devices():
-            p = {k: v.to(dev) for k, v in params.items()}
-            reps[dev] = (to_device(scene, dev).with_material_params(p),
-                         to_device(camera, dev), to_device(sky_tex, dev))
+            scene_d, camera_d, sky_d, p = to_device((scene, camera, sky_tex, params), dev)
+            reps[dev] = (scene_d.with_material_params(p), camera_d, sky_d)
         sums, counts = [], []
         for dev, ys, xs in _tile_slices(mesh, pix):
             pix_t = pix[ys, xs].to(dev)

@@ -19,10 +19,11 @@ Its design:
   cache key: the shapes and dtypes of every input (:func:`signature`) and
   the static arguments (resolution, samples, depth, seed, the route and
   the environment switches the route reads, :func:`env_switches`).
-  A dataclass field declared a plain value (``Scene.type_perm``, say) is
-  taken whole by every walk (:func:`dataclass_fields`): its value goes
-  into the key as it is, and no copy looks inside it, so no call walks a
-  large tuple element by element.
+  Every one of these walks a call's inputs by one rule (:func:`_walk`):
+  into dataclasses, tuples and dicts.  A dataclass field declared a plain
+  value (``Scene.type_perm``, say) is taken whole: its value goes into the
+  key as it is, and no copy looks inside it, so no call walks a large
+  tuple element by element.
 - Capture runs each body once on a side stream first (the kernels' build
   and load, ``cudaFuncSetAttribute``, allocator growth), then captures the
   bodies of one :meth:`GraphedCall.capture` call into one memory pool, on
@@ -37,11 +38,10 @@ Its design:
   every replay.
 - The host's work around a replay is traced by spans (``utils/obs.py``,
   recorded while a ``torch.profiler`` profile runs): ``graphs.entry``
-  (the key and the lookup, `hit` 0 or 1; the nodes the key's walk
-  visited, `walked`, and the fields it took whole, `whole`),
+  (the key and the lookup, `hit` 0 or 1),
   ``graphs.capture`` (warm-up and capture, `bodies`), ``graphs.copy_in``
-  (the copies into the buffers and the writes beside them, `tensors`,
-  `bytes` and `walked`, opened by the caller)
+  (the copies into the buffers and the writes beside them, `tensors` and
+  `bytes`, opened by the caller)
   and ``graphs.replay`` (`card`).  No span lies inside a body.
 - A capture that fails raises.  Nothing falls back to the eager bodies:
   a caller that wants eager work calls the eager function
@@ -61,7 +61,6 @@ bookkeeping can be tested on the CPU with a stand-in that runs the body.
 from __future__ import annotations
 
 import collections
-import contextvars
 import dataclasses
 import functools
 import os
@@ -73,113 +72,77 @@ from cpppathtracer_tpu_torch.utils import obs
 
 
 @functools.cache
-def dataclass_fields(cls) -> tuple[tuple, tuple, tuple]:
-    """(fields, walked, whole) of dataclass type `cls`, made once a type:
-    every field's name with True where it is declared a plain value
+def dataclass_fields(cls) -> tuple:
+    """The fields of dataclass type `cls`, made once a type: each field's
+    name with True where it is declared a plain value
     (``dataclasses.field(..., metadata={"static": True})``), in declaration
-    order; the names of the fields the structure walks descend into; and
-    the names of those they take whole, as one leaf (a tuple of 16,384
-    ints costs one step, not 16,384)."""
-    fields = tuple((f.name, bool(f.metadata.get("static"))) for f in dataclasses.fields(cls))
-    return (fields, tuple(n for n, w in fields if not w), tuple(n for n, w in fields if w))
+    order."""
+    return tuple((f.name, bool(f.metadata.get("static"))) for f in dataclasses.fields(cls))
 
 
-def _fields(obj) -> tuple[tuple, tuple, tuple]:
-    """:func:`dataclass_fields` of dataclass `obj`'s type.  Raises
-    TypeError where a field taken whole holds a tensor: no walk would copy
-    it, nor put its shape in a key."""
-    split = dataclass_fields(type(obj))
-    for name in split[2]:
-        if isinstance(getattr(obj, name), torch.Tensor):
-            raise TypeError(f"{type(obj).__name__}.{name} is declared a plain value (static), "
-                            "which the compiled calls take whole, but holds a tensor")
-    return split
+def _walk(obj, leaf, node):
+    """The compiled calls' one walk of a structure: `leaf(t)` of every
+    tensor, and `node(obj, kids)` of every dataclass, tuple and dict, where
+    `kids` holds its items walked (a tuple's as a tuple, a dict's and a
+    dataclass's as a dict by key or field name).  A dataclass field
+    declared a plain value is taken whole: its value itself, unwalked (a
+    tuple of 16,384 ints costs one step, not 16,384), and TypeError if it
+    holds a tensor, which no walk would copy nor put in a key.  Anything
+    else (a list, None, a number) is a leaf that stands for itself."""
+    if isinstance(obj, torch.Tensor):
+        return leaf(obj)
+    if isinstance(obj, tuple):
+        return node(obj, tuple([_walk(x, leaf, node) for x in obj]))
+    if isinstance(obj, dict):
+        return node(obj, {k: _walk(v, leaf, node) for k, v in obj.items()})
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        kids = {}
+        for name, whole in dataclass_fields(type(obj)):
+            value = getattr(obj, name)
+            if isinstance(value, torch.Tensor):
+                if whole:
+                    raise TypeError(f"{type(obj).__name__}.{name} is declared a plain value "
+                                    "(static), which the compiled calls take whole, but holds "
+                                    "a tensor")
+                value = leaf(value)
+            elif not whole:
+                value = _walk(value, leaf, node)
+            kids[name] = value
+        return node(obj, kids)
+    return obj
 
 
-# The walks' count while a span that is on takes it (:func:`_counted`):
-# [nodes that signature and tensors visited, fields signature took whole].
-_VISITS: contextvars.ContextVar = contextvars.ContextVar("graphs_walk_visits", default=None)
-
-
-def _counted(span, fn, *, whole: bool = False):
-    """fn(), and where `span` is on, the nodes that the walks inside it
-    visited counted in the span as `walked` (and the fields taken whole as
-    `whole`).  Off, nothing is counted."""
-    if not span.on:
-        return fn()
-    visits = [0, 0]
-    token = _VISITS.set(visits)
-    try:
-        return fn()
-    finally:
-        _VISITS.reset(token)
-        span.count("walked", visits[0])
-        if whole:
-            span.count("whole", visits[1])
+def _signature_node(obj, kids):
+    if isinstance(obj, tuple):
+        return kids
+    items = tuple(kids.items())
+    return items if isinstance(obj, dict) else (type(obj).__name__,) + items
 
 
 def signature(obj):
     """A hashable description of what a capture bakes in about `obj`: a
     tensor's shape, dtype and device; a dataclass's type and fields (a
     field declared a plain value as its value itself); the items of a
-    tuple or list; any other value itself."""
-    return _signature(obj, _VISITS.get())
+    tuple or dict; any other value itself."""
+    return _walk(obj, lambda t: ("tensor", tuple(t.shape), t.dtype, t.device), _signature_node)
 
 
-def _signature(obj, visits):
-    if visits is not None:
-        visits[0] += 1
-    if isinstance(obj, torch.Tensor):
-        return ("tensor", tuple(obj.shape), obj.dtype, obj.device)
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        fields, _, taken = _fields(obj)
-        if visits is not None:
-            visits[1] += len(taken)
-        return (type(obj).__name__,) + tuple(
-            (name, getattr(obj, name) if whole else _signature(getattr(obj, name), visits))
-            for name, whole in fields)
-    if isinstance(obj, (tuple, list)):
-        return tuple(_signature(x, visits) for x in obj)
-    if isinstance(obj, dict):
-        return tuple((k, _signature(v, visits)) for k, v in obj.items())
-    return obj
+def _rebuild(obj, kids):
+    return kids if isinstance(obj, (tuple, dict)) else dataclasses.replace(obj, **kids)
 
 
 def map_tensors(obj, fn):
-    """`obj` with `fn` applied to every tensor in it (through dataclasses,
-    tuples and dicts; a field declared a plain value passes unchanged)."""
-    if isinstance(obj, torch.Tensor):
-        return fn(obj)
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return dataclasses.replace(obj, **{name: map_tensors(getattr(obj, name), fn)
-                                           for name in _fields(obj)[1]})
-    if isinstance(obj, tuple):
-        return tuple(map_tensors(x, fn) for x in obj)
-    if isinstance(obj, dict):
-        return {k: map_tensors(v, fn) for k, v in obj.items()}
-    return obj
+    """`obj` with `fn` applied to every tensor in it (a dataclass field
+    declared a plain value passes unchanged)."""
+    return _walk(obj, fn, _rebuild)
 
 
-def tensors(obj):
-    """The tensors of `obj` (through dataclasses, tuples and dicts; not
-    into a field declared a plain value), in order."""
-    return _tensors(obj, _VISITS.get())
-
-
-def _tensors(obj, visits):
-    if visits is not None:
-        visits[0] += 1
-    if isinstance(obj, torch.Tensor):
-        yield obj
-    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        for name in _fields(obj)[1]:
-            yield from _tensors(getattr(obj, name), visits)
-    elif isinstance(obj, tuple):
-        for x in obj:
-            yield from _tensors(x, visits)
-    elif isinstance(obj, dict):
-        for x in obj.values():
-            yield from _tensors(x, visits)
+def tensors(obj) -> list:
+    """The tensors of `obj` (not in a field declared a plain value), in
+    order."""
+    found = []
+    _walk(obj, found.append, lambda obj, kids: None)
+    return found
 
 
 def static_twin(obj):
@@ -192,9 +155,9 @@ def copy_into(static, current, span=obs.OFF):
     """Copy every tensor of `current` into its place in `static` (the same
     structure, as :func:`signature` says); a tensor that is its own static
     buffer is left alone.  `span`, an open ``graphs.copy_in`` span, counts
-    the tensors copied, their bytes and the nodes the walks visited."""
+    the tensors copied and their bytes."""
     counting = span.on
-    pairs = _counted(span, lambda: list(zip(tensors(static), tensors(current), strict=True)))
+    pairs = list(zip(tensors(static), tensors(current), strict=True))
     with torch.no_grad():  # a buffer takes values, never an autograd history
         for dst, src in pairs:
             if dst is not src:
@@ -324,7 +287,7 @@ class GraphedCall:
 
     def entry(self, key, build):
         with obs.span("graphs.entry") as sp:
-            key = _counted(sp, key, whole=True)  # part of every call's host time
+            key = key()  # part of every call's host time
             hit = key in self._entries
             sp.count("hit", int(hit))
             if hit:

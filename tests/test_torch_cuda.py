@@ -519,49 +519,37 @@ def test_textured_sample_grads_kernel_vs_plain_on_card(dev, monkeypatch):
 @pytest.mark.gpu
 @pytest.mark.parametrize("with_aux", [False, True])
 def test_ladder_and_second_split_on_card(dev, monkeypatch, with_aux):
-    """One 1024^2 x d8 sample of the demo scene through the kernels under
-    POCA_MEGA_LADDER=1 with the second split, without it, and with
-    POCA_MEGA_PREFIX2=1, against the unsplit trace (POCA_MEGA_SPLIT=0):
-    hit planes, missed and the first-hit buffers bitwise equal; radiance
-    within 5e-7; the ladder alone and PREFIX2 bitwise equal to the
-    schedules they partition (the single phase-B launch, the second
-    split); aux planes bitwise on every bounce that hit."""
+    """One 1024^2 x d8 sample of the demo scene through the kernels, its
+    phase B the single launch that replaced JAX's ladder and second split
+    on the card, against the unsplit trace (POCA_MEGA_SPLIT=0): hit
+    planes, missed and the first-hit buffers bitwise equal; radiance within
+    5e-7; aux planes bitwise on every bounce that hit.  Phase A and phase
+    B: two trace launches, one compaction."""
     gs = group_scene(demo_scene(0).build(device=dev))
     cam = Camera.make(1024, 1024, origin=(130.0, 103.0, 130.0), look_at=(0.0, 0.0, 0.0),
                       device=dev)
     pix = torch.arange(1024 * 1024, dtype=torch.int32, device=dev)
-    switches = ("POCA_MEGA_SPLIT", "POCA_MEGA_LADDER", "POCA_MEGA_SPLIT2", "POCA_MEGA_PREFIX2")
 
-    def sample(**env):
-        for k in switches:
-            monkeypatch.delenv(k, raising=False)
-        for k, v in env.items():
-            monkeypatch.setenv(k, v)
+    def sample(split=None):
+        monkeypatch.delenv("POCA_MEGA_SPLIT", raising=False)
+        if split is not None:
+            monkeypatch.setenv("POCA_MEGA_SPLIT", split)
         kb.reset_launches()
         with torch.no_grad():
             out = mega.mega_sample(gs, cam, pix, 1, 0, 8, with_aux=with_aux)
         torch.cuda.synchronize()
         return out, dict(kb.LAUNCHES)
 
-    flat = lambda s: [*s[0], *s[1], *s[2], s[3], *s[4], s[5], *s[6]] + (
-        [c for p, a in s[7] for c in (*p, a)] if with_aux else [])
     paths = lambda s: [s[3], *s[4], s[5], *s[6]]
-    bits = lambda t: t.view(torch.int32)
-    s0, _ = sample(POCA_MEGA_SPLIT="0")
-    one, _ = sample(POCA_MEGA_LADDER="0")
-    lad, n_lad = sample(POCA_MEGA_LADDER="1", POCA_MEGA_SPLIT2="0")
-    sp2, n_sp2 = sample(POCA_MEGA_LADDER="1", POCA_MEGA_SPLIT2="1")
-    pre, n_pre = sample(POCA_MEGA_LADDER="1", POCA_MEGA_SPLIT2="1", POCA_MEGA_PREFIX2="1")
+    s0, _ = sample("0")
+    one, n_one = sample()
     name = "mega_trace_aux" if with_aux else "mega_trace"
-    assert (n_lad[name], n_sp2[name], n_pre[name]) == (3, 4, 5)
-    assert (n_lad["stream_compact"], n_sp2["stream_compact"]) == (1, 2)
-    assert all(torch.equal(bits(a), bits(b)) for a, b in zip(flat(lad), flat(one)))
-    assert all(torch.equal(bits(a), bits(b)) for a, b in zip(flat(pre), flat(sp2)))
-    assert all(torch.equal(a, b) for a, b in zip(paths(sp2), paths(s0)))
+    assert (n_one[name], n_one["stream_compact"]) == (2, 1)
+    assert all(torch.equal(a, b) for a, b in zip(paths(one), paths(s0)))
     for k in range(3):
-        assert torch.allclose(sp2[0][k], s0[0][k], rtol=5e-7, atol=5e-7)
+        assert torch.allclose(one[0][k], s0[0][k], rtol=5e-7, atol=5e-7)
     if with_aux:
-        for b, ((p1, a1), (p0, a0)) in enumerate(zip(sp2[7], s0[7])):
+        for b, ((p1, a1), (p0, a0)) in enumerate(zip(one[7], s0[7])):
             hit = s0[6][b] >= 0
             assert all(torch.equal(x[hit], y[hit]) for x, y in zip((*p1, a1), (*p0, a0)))
 

@@ -26,6 +26,7 @@ from cpppathtracer_tpu_torch.models.camera import Camera
 from cpppathtracer_tpu_torch.models.presets import big_camera, big_scene
 from cpppathtracer_tpu_torch.models.scene import demo_scene
 from cpppathtracer_tpu_torch.ops.cuda import build as kb
+from cpppathtracer_tpu_torch.parallel.render import to_device
 from cpppathtracer_tpu_torch.renderer import (
     AccumulatorState,
     ProgressiveRenderer,
@@ -34,7 +35,6 @@ from cpppathtracer_tpu_torch.renderer import (
 )
 from cpppathtracer_tpu_torch.utils import obs
 from cpppathtracer_tpu_torch.utils.graphs import (
-    Entry,
     GraphedCall,
     copy_into,
     map_tensors,
@@ -407,41 +407,34 @@ def test_scenes_that_differ_in_a_plain_field_get_different_keys(field):
     assert signature(moved) != signature(scene)
 
 
-def _walk_counts(n, span):
-    """The counts of one `span` (graphs.entry or graphs.copy_in) around the
-    render key's walk and the copy's, on big_scene(n), under a profile."""
-    scene, cam, sky = _big(n)[:3]
-    inputs = (scene, cam, sky, None, None)
-    runner = GraphedCall(backend=RunBody())
-    obs.clear_spans()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
-        runner.entry(lambda: render_key(scene, cam, sky, spp=2, max_depth=3), lambda r: Entry())
-        with obs.span("graphs.copy_in") as sp:
-            copy_into(static_twin(inputs), inputs, sp)
-    (rec,) = [r for r in obs.spans() if r["name"] == span]
-    obs.clear_spans()
-    return rec["counts"]
-
-
-@pytest.mark.parametrize("span", ["graphs.entry", "graphs.copy_in"])
-def test_walked_counts_do_not_grow_with_the_scene(span):
-    """Under an open span the walks visit as many nodes on big_scene(8192)
-    as on big_scene(2048), a few dozen, and the key takes the scene's
-    three plain fields whole."""
-    small, large = _walk_counts(2048, span), _walk_counts(8192, span)
-    assert small["walked"] == large["walked"] < 100
-    if span == "graphs.entry":
-        assert small["whole"] == large["whole"] == 3
-    else:
-        assert "whole" not in small and small["tensors"] == large["tensors"]
-
-
 WALKS = {
     "signature": signature,
     "tensors": lambda x: list(tensors(x)),
     "map_tensors": lambda x: map_tensors(x, torch.clone),
     "copy_into": lambda x: copy_into(x, x),
+    "to_device": lambda x: to_device(x, "cpu"),
 }
+
+
+class _Unwalkable(tuple):
+    """A tuple that fails the test wherever a walk looks inside it."""
+
+    def __iter__(self):
+        raise AssertionError("a walk iterated a field declared a plain value")
+
+
+@pytest.mark.parametrize("walk", list(WALKS))
+def test_plain_field_is_taken_whole(walk):
+    """Every walk takes a field declared a plain value whole, never looking
+    inside it: a scene's type_perm that fails when iterated passes through
+    each, and the key and the rebuilt scenes hold it itself."""
+    scene = _big(2048)[0]
+    perm = _Unwalkable(scene.type_perm)
+    out = WALKS[walk]((dataclasses.replace(scene, type_perm=perm), None))
+    if walk == "signature":
+        assert dict(out[0][1:])["type_perm"] is perm
+    elif walk in ("map_tensors", "to_device"):
+        assert out[0].type_perm is perm and out[1] is None
 
 
 @pytest.mark.parametrize("walk", list(WALKS))

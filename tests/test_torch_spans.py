@@ -20,10 +20,10 @@ from cpppathtracer_tpu_torch.models.camera import Camera
 from cpppathtracer_tpu_torch.models.scene import SceneBuilder
 from cpppathtracer_tpu_torch.ops.texture import procedural_sky
 from cpppathtracer_tpu_torch.renderer import ProgressiveRenderer, RenderConfig
-from cpppathtracer_tpu_torch.utils import graphs, obs
+from cpppathtracer_tpu_torch.utils import obs
 from cpppathtracer_tpu_torch.utils.graphs import GraphedCall, tensors
 
-from torch_port_helpers import RunBody, walk_nodes
+from torch_port_helpers import RunBody
 
 torch.set_num_threads(1)
 
@@ -155,17 +155,14 @@ def test_render_spans_miss_then_hit():
     assert len(calls) == 2 and all(r["parent"] == -1 for r in calls)
     assert [r["counts"] for r in calls] == [{"replays": 2}] * 2
     entries = _named(recs, "graphs.entry")
-    walked = walk_nodes((scene, cam, sky, None, None))  # the key's inputs
-    assert [r["counts"] for r in entries] == [
-        {"hit": 0, "walked": walked, "whole": 3}, {"hit": 1, "walked": walked, "whole": 3}]
+    assert [r["counts"] for r in entries] == [{"hit": 0}, {"hit": 1}]
     (cap,) = _named(recs, "graphs.capture")
     assert cap["counts"] == {"bodies": 2}
     assert recs[cap["parent"]]["name"] == "graphs.entry" and cap["call"] == calls[0]["call"]
     copies = _named(recs, "graphs.copy_in")
     inputs = (scene, cam, sky)
     assert [r["counts"] for r in copies] == [
-        {"tensors": len(list(tensors(inputs))), "bytes": _nbytes(inputs),
-         "walked": 2 * walked}] * 2
+        {"tensors": len(tensors(inputs)), "bytes": _nbytes(inputs)}] * 2
     replays = _named(recs, "graphs.replay")
     assert len(replays) == 4 and all(r["counts"] == {"card": 0} for r in replays)
     for r in recs:
@@ -192,7 +189,7 @@ def test_viewer_spans_count_the_mix_copy():
     assert [x["name"] for x in recs if x["parent"] == -1] == [
         "viewer.frame", "viewer.frame", "viewer.move", "viewer.frame"]
     copies = [x["counts"]["tensors"] for x in _named(recs, "graphs.copy_in")]
-    n_in = len(list(tensors((scene, cam, sky))))
+    n_in = len(tensors((scene, cam, sky)))
     assert copies == [n_in + 1, n_in, n_in + 1]
     assert len(_named(recs, "graphs.capture")) == 1 and len(_named(recs, "graphs.replay")) == 3
 
@@ -216,35 +213,9 @@ def test_train_step_spans():
     assert len(steps) == 2 and [x["name"] for x in recs if x["parent"] == -1] == ["train.step"] * 2
     copied = (params, opt, (scene, sky, target, cam))
     assert [x["counts"] for x in _named(recs, "graphs.copy_in")] == [
-        {"tensors": len(list(tensors(copied))), "bytes": _nbytes(copied),
-         "walked": 2 * walk_nodes(copied)}] * 2
-    walked = walk_nodes((params, opt, scene, sky, target, cam))  # the key's inputs
-    assert [x["counts"] for x in _named(recs, "graphs.entry")] == [
-        {"hit": 0, "walked": walked, "whole": 3}, {"hit": 1, "walked": walked, "whole": 3}]
+        {"tensors": len(tensors(copied)), "bytes": _nbytes(copied)}] * 2
+    assert [x["counts"] for x in _named(recs, "graphs.entry")] == [{"hit": 0}, {"hit": 1}]
     for s in steps:
         inside = [x for x in recs if x["call"] == s["call"] and x is not s]
         assert sum(x["end_ns"] - x["start_ns"] for x in inside if recs[x["parent"]] is s) == (
             s["end_ns"] - s["start_ns"] - s["self_ns"])
-
-
-def test_walk_counts_only_under_a_profile():
-    """The key's and the copy's walks are counted (`walked`, and `whole` on
-    the entry) on `graphs.entry` and `graphs.copy_in` while a profile
-    records, the same on every call; without one no span is kept and no
-    count is armed."""
-    scene, cam, sky = _small()
-    runner = GraphedCall(backend=RunBody())
-    for _ in range(2):
-        render_graphed(runner, scene, cam, sky, spp=1, max_depth=2)
-    assert obs.spans() == [] and graphs._VISITS.get() is None
-    with recording():
-        for _ in range(2):
-            render_graphed(runner, scene, cam, sky, spp=1, max_depth=2)
-    assert graphs._VISITS.get() is None
-    recs = obs.spans()
-    walked = walk_nodes((scene, cam, sky, None, None))
-    assert [r["counts"] for r in _named(recs, "graphs.entry")] == [
-        {"hit": 1, "walked": walked, "whole": 3}] * 2
-    assert [r["counts"]["walked"] for r in _named(recs, "graphs.copy_in")] == [2 * walked] * 2
-    assert all("walked" not in r["counts"] for r in recs
-               if r["name"] not in ("graphs.entry", "graphs.copy_in"))

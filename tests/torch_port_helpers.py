@@ -2,8 +2,6 @@
 package: the same objects, made once with the JAX package and carried
 across as numpy arrays through ``cpppathtracer_tpu_torch.convert``."""
 
-import dataclasses
-
 import numpy as np
 
 from cpppathtracer_tpu.models.scene import SceneBuilder
@@ -21,23 +19,6 @@ def port_scene(scene):
     fields = {k: np.asarray(getattr(scene, k)) for k in names}
     return convert.scene_from_numpy(fields, scene.type_perm, scene.type_counts, device="cpu",
                                     bvh_dims=scene.bvh_dims)
-
-
-def walk_nodes(obj) -> int:
-    """The nodes that ``utils/graphs.py``'s key walk (``signature``) and
-    tensors' walk each visit in `obj` (one a tensor, dataclass, tuple,
-    dict or other value), written out here: a dataclass field declared a
-    plain value (``metadata={"static": True}``) is not looked into."""
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        kids = [getattr(obj, f.name) for f in dataclasses.fields(obj)
-                if not f.metadata.get("static")]
-    elif isinstance(obj, (tuple, list)):
-        kids = obj
-    elif isinstance(obj, dict):
-        kids = obj.values()
-    else:
-        kids = ()
-    return 1 + sum(walk_nodes(k) for k in kids)
 
 
 def port_camera(cam):
