@@ -451,17 +451,20 @@ def record_calls(module, name, calls):
 
 
 @contextlib.contextmanager
-def record_bvh_rays(calls):
+def record_bvh_rays(calls, lives=None):
     """Keep a copy of the rays of every BVH walk the wavefront path
-    launches (its launches still count)."""
+    launches (its launches still count), and in `lives` a copy of each
+    walk's live set (None where it took none)."""
     from cpppathtracer_tpu_torch.ops import fast
 
     real = fast.bvh_winner_index
 
-    def recording(o, d, tmin, tmax, *tables, **kw):
+    def recording(o, d, tmin, tmax, *tables, live=None, **kw):
         calls.append((tuple(c.clone() for c in o), tuple(c.clone() for c in d), tmin.clone(),
                       tmax.clone()))
-        return real(o, d, tmin, tmax, *tables, **kw)
+        if lives is not None:
+            lives.append(None if live is None else tuple(t.clone() for t in live))
+        return real(o, d, tmin, tmax, *tables, live=live, **kw)
 
     fast.bvh_winner_index = recording
     try:
@@ -815,7 +818,9 @@ def bvh_phase(dev, sky):
     from cpppathtracer_tpu_torch.integrator import render_radiance
     from cpppathtracer_tpu_torch.models.presets import big_camera, big_scene
     from cpppathtracer_tpu_torch.ops.cuda import build as kb
-    from cpppathtracer_tpu_torch.ops.cuda.bvh_kernel import bvh_winner_index, bvh_winner_index_plain
+    from cpppathtracer_tpu_torch.ops.cuda.bvh_kernel import (
+        bvh_winner_index, bvh_winner_index_plain, walked_count, walked_lanes,
+    )
     from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import (
         WINNER_TILE_ROWS, build_geom_rows, winner_index, winner_index_plain,
     )
@@ -838,15 +843,20 @@ def bvh_phase(dev, sky):
     gs = group_scene(scene)
     tables = (gs.bvh_meta, gs.bvh_aabb, gs.bvh_objs)
     n_leaves = gs.bvh_objs.shape[0] // k
-    regs, local, per_sm, in_smem = kernel_info(kb.library().poca_bvh_info, m, n_leaves, n=4)
+    regs, local, per_sm, in_smem = kernel_info(kb.library().poca_bvh_info, m, n_leaves, 0, n=4)
+    regs_l, local_l, per_sm_l, _ = kernel_info(kb.library().poca_bvh_info, m, n_leaves, 1, n=4)
     log(f"[bvh] walk kernel: {regs} registers, {local} local bytes a thread, {per_sm} blocks of "
-        f"256 threads per SM; its layout: {gs.bvh_layout[2].shape[0]} rows in {n_leaves} leaves, "
+        f"256 threads per SM (with a live set: {regs_l}, {local_l}, {per_sm_l}); its layout: "
+        f"{gs.bvh_layout[2].shape[0]} rows in {n_leaves} leaves, "
         f"nodes and headers {32 * m + 16 * n_leaves} bytes in "
         f"{'shared memory' if in_smem else 'device memory, read through the cache'}")
+    if local or local_l:
+        raise AssertionError("the walk kernel spills to local memory")
 
-    # one sample of the slice render with every bounce's rays kept (also the warm-up)
-    calls = []
-    with torch.no_grad(), record_bvh_rays(calls):
+    # one sample of the slice render with every bounce's rays and live sets kept (also
+    # the warm-up)
+    calls, lives = [], []
+    with torch.no_grad(), record_bvh_rays(calls, lives):
         render_radiance(scene, camera, sky, spp=1, max_depth=DEPTH, seed=0)
     torch.cuda.synchronize()
 
@@ -952,7 +962,8 @@ def bvh_phase(dev, sky):
     dt = time.perf_counter() - t0
     launches = dict(kb.LAUNCHES)
     want = dict(kb.LAUNCHES, bvh_winner_index=BVH_SPP * DEPTH, wavefront_bounce=BVH_SPP * DEPTH,
-                mega_trace=0, mega_bwd=0, winner_index=0, stream_compact=0, stream_expand=0)
+                bvh_winner_index_live=BVH_SPP * (DEPTH - 2), mega_trace=0, mega_bwd=0,
+                winner_index=0, stream_compact=0, stream_expand=0)
     if launches != want:
         raise AssertionError(f"the BVH render launched {launches}, expected {want}")
     if not (torch.isfinite(rad).all() and rad.shape == (r, 3) and torch.isfinite(n0).all()):
@@ -999,8 +1010,8 @@ def bvh_phase(dev, sky):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     step_launches = dict(kb.LAUNCHES)
     want = dict(kb.LAUNCHES, bvh_winner_index=WF_SPP * DEPTH, wavefront_bounce=WF_SPP * DEPTH,
-                mega_trace=0, mega_trace_aux=0, mega_bwd=0, winner_index=0, stream_compact=0,
-                stream_expand=0)
+                bvh_winner_index_live=WF_SPP * (DEPTH - 2), mega_trace=0, mega_trace_aux=0,
+                mega_bwd=0, winner_index=0, stream_compact=0, stream_expand=0)
     if step_launches != want:
         raise AssertionError(f"the BVH training step launched {step_launches}, expected {want}")
     for name, g in (("kd", g_kd), ("emission", g_em)):
@@ -1042,31 +1053,48 @@ def bvh_phase(dev, sky):
         raise AssertionError("the wavefront gradients disagree with the megakernel path's")
 
     # 9. kernel rows.  The walk per sample: the 8 per-bounce launches of sample 0 on its
-    # recorded rays; the dense launch on the 1024^2 primaries of big_scene(4096).
+    # recorded rays and live sets, as the main path launches them; the dense launch on
+    # the 1024^2 primaries of big_scene(4096).
     ops_slab, ops_row = bvh_ops()
     layout = gs.bvh_layout  # the scene's, as on the main path
-    walk = lambda fn, **kw: [fn(*c, *tables, leaf_size=k, **kw) for c in calls]
+    walk = lambda fn, **kw: [fn(*c, *tables, leaf_size=k, live=lv, **kw)
+                             for c, lv in zip(calls, lives)]
+    every = lambda: [bvh_winner_index(*c, *tables, leaf_size=k, layout=layout) for c in calls]
     ms_bvh = time_ms(lambda: walk(bvh_winner_index, layout=layout), iters=5, warmup=1)
+    ms_every = time_ms(every, iters=5, warmup=1)
     t0 = time.perf_counter()
     counted = walk(bvh_winner_index_plain, with_counts=True)
     torch.cuda.synchronize()
     plain_bvh = (time.perf_counter() - t0) * 1e3
-    # the kernel against its plain version on every bounce of the sample, 2^20 lanes each
-    err_bvh = max(float((a - c[0]).abs().max())
-                  for a, c in zip(walk(bvh_winner_index, layout=layout), counted))
+    # the kernel against its plain version on every bounce of the sample, 2^20 lanes
+    # each, and with its live sets against the walk of every lane
+    got = walk(bvh_winner_index, layout=layout)
+    err_bvh = max(float((a - c[0]).abs().max()) for a, c in zip(got, counted))
+    err_every = max(float((a - b).abs().max()) for a, b in zip(got, every()))
+    walked = [int(walked_count(a)) for a in got]
+    want_walked = [r if lv is None else int(walked_lanes(*lv[:2]).sum()) for lv in lives]
     log(f"[check] bvh_winner_index vs plain, the {len(calls)} bounces of one sample of "
-        f"big_scene({BVH_N}) at 1024^2: max |diff| {err_bvh}")
-    if err_bvh:
-        raise AssertionError("bvh_winner_index differs from its plain version on the sample's bounces")
-    # each bounce's launch, and the share of paths still alive there (a path that missed
-    # keeps its ray, so its origin stops changing)
-    ms_bounce = [time_ms(lambda c=c: bvh_winner_index(*c, *tables, leaf_size=k, layout=layout),
-                         iters=5, warmup=1) for c in calls]
+        f"big_scene({BVH_N}) at 1024^2: max |diff| {err_bvh}; with the live sets vs every "
+        f"lane walked: max |diff| {err_every}; lanes walked {walked} (the rule's {want_walked})")
+    if err_bvh or err_every or walked != want_walked:
+        raise AssertionError("bvh_winner_index differs from its plain version or from the walk of "
+                             "every lane on the sample's bounces")
+    # each bounce's launch as the main path makes it and with every lane walked, and the
+    # share of paths still alive there (a path that missed keeps its ray, so its origin
+    # stops changing)
+    ms_bounce = [time_ms(lambda c=c, lv=lv: bvh_winner_index(*c, *tables, leaf_size=k,
+                                                             layout=layout, live=lv),
+                         iters=5, warmup=1) for c, lv in zip(calls, lives)]
+    ms_bounce_every = [time_ms(lambda c=c: bvh_winner_index(*c, *tables, leaf_size=k,
+                                                            layout=layout),
+                               iters=5, warmup=1) for c in calls]
     alive = [1.0] + [float(((a[0][0] != b[0][0]) | (a[0][1] != b[0][1]) | (a[0][2] != b[0][2]))
                            .float().mean()) for b, a in zip(calls, calls[1:])]
     log(f"[kernels] bvh_winner_index per bounce (ms): {[round(v, 4) for v in ms_bounce]}, sum "
-        f"{sum(ms_bounce):.3f} ms (the 8 launches timed together: {ms_bvh:.3f} ms); paths alive "
-        f"{[round(v, 4) for v in alive]}")
+        f"{sum(ms_bounce):.3f} ms (the 8 launches timed together: {ms_bvh:.3f} ms); every lane "
+        f"walked: {[round(v, 4) for v in ms_bounce_every]}, sum {sum(ms_bounce_every):.3f} ms "
+        f"(together {ms_every:.3f} ms); lanes walked {[round(w / r, 4) for w in walked]}; "
+        f"paths alive {[round(v, 4) for v in alive]}")
 
     n_slab = sum(int(c[1].sum()) for c in counted)
     n_rows = [sum(int(c[2][t].sum()) for c in counted) for t in range(3)]
@@ -1114,7 +1142,8 @@ def bvh_phase(dev, sky):
              replaces="cpppathtracer_tpu/ops/pallas/bvh_kernel.py:234",
              launches=launches["bvh_winner_index"], max_abs_err=err_bvh, ms=ms_bvh, plain_ms=plain_bvh,
              bound_ms=max(ops_s, bytes_s) * 1e3, bound_by=by(ops_s, bytes_s), library_ms=None,
-             ms_per_bounce=ms_bounce, registers=regs, blocks_per_sm=per_sm),
+             ms_per_bounce=ms_bounce, ms_every_lane=ms_every, walked_share=[w / r for w in walked],
+             registers=regs, blocks_per_sm=per_sm),
         dict(name="winner_index", route="cuda", source="cpppathtracer_tpu_torch/csrc/winner.cu",
              replaces="cpppathtracer_tpu/ops/pallas/intersect_kernel.py:419",
              launches=dense_launches["winner_index"], max_abs_err=err_w, ms=ms_w, plain_ms=plain_w,
@@ -1959,7 +1988,8 @@ def bench_phase(dev, card, scene, camera, sky, step_ref):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     BENCH_GRAPHS.clear()
     want = dict(mega_trace=2 * SPP, mega_trace_aux=0, stream_compact=SPP, stream_expand=SPP,
-                mega_bwd=SPP, winner_index=0, bvh_winner_index=0, denoise=0, wavefront_bounce=0)
+                mega_bwd=SPP, winner_index=0, bvh_winner_index=0, bvh_winner_index_live=0,
+                denoise=0, wavefront_bounce=0)
     same_loss = torch.equal(bits(loss), bits(step_ref[0]))
     rel = {k: float((g - r).norm() / r.norm()) for (k, g), r in zip(grads.items(), step_ref[1:])}
     same_g = {k: torch.equal(bits(g), bits(r)) for (k, g), r in zip(grads.items(), step_ref[1:])}
@@ -2141,7 +2171,7 @@ def kernel_launches(launches):
     """The launches of each CUDA function that build.LAUNCHES counted."""
     out = {}
     for k, n in launches.items():
-        if n:
+        if n and k != "bvh_winner_index_live":  # bvh_winner_index's launches, counted again
             out[KERNEL_OF[k]] = out.get(KERNEL_OF[k], 0) + n
     return out
 
@@ -3299,7 +3329,8 @@ def main():
     train_launches = dict(kb.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     want = dict(mega_trace=2 * SPP, mega_trace_aux=0, stream_compact=SPP, stream_expand=SPP,
-                mega_bwd=SPP, winner_index=0, bvh_winner_index=0, denoise=0, wavefront_bounce=0)
+                mega_bwd=SPP, winner_index=0, bvh_winner_index=0, bvh_winner_index_live=0,
+                denoise=0, wavefront_bounce=0)
     if train_launches != want:
         raise AssertionError(f"training step launches {train_launches}, expected {want}")
     for name, g in (("kd", g_kd), ("emission", g_em)):

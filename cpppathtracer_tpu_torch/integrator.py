@@ -157,7 +157,9 @@ def _trace_fused(gs, rays, pixel_idx, sample_idx, seed, max_depth: int, tables=N
     """:func:`trace_bounces` on the card without autograd: the winner
     search and one ``wavefront_bounce`` launch a bounce, on carry planes
     updated in place (so `o`, `d`, `thru`, `rad` below, views of them, hold
-    each bounce's values)."""
+    each bounce's values).  From bounce 2 the BVH walk takes the live set
+    (alive, first_t, the last winners): a lane that missed at a bounce >= 1
+    keeps its ray, so it keeps its winner unwalked."""
     carry, alive, first = start_planes(*rays)
     o, d, thru, rad = carry_parts(carry)
     ts, trt = field_major_tables(*((gs.table_s, gs.table_r) if tables is None else tables))
@@ -168,7 +170,8 @@ def _trace_fused(gs, rays, pixel_idx, sample_idx, seed, max_depth: int, tables=N
     tmax = zero + INF
     gidxs = []
     for b in range(max_depth):
-        gidx = fast.closest_index(gs, o, d, tmins[b > 0], tmax)
+        live = (alive, first[3], gidxs[-1]) if b >= 2 else None
+        gidx = fast.closest_index(gs, o, d, tmins[b > 0], tmax, live=live)
         gidxs.append(gidx)
         wavefront_bounce(carry, alive, first, gidx, pix, samp, seed, ts, trt, bounce=b)
     return (rad, d, thru, (~alive).to(torch.float32), tuple(first[0:3]), first[3], gidxs,

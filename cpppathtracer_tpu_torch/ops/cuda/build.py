@@ -38,10 +38,12 @@ NVCC_FLAGS = [
 ]
 
 # launches per wrapper since the last reset_launches(); mega_trace's with_aux
-# form (a kernel instantiation of its own) counts apart
+# form (a kernel instantiation of its own) counts apart; bvh_winner_index_live
+# counts those of bvh_winner_index's launches that took a live set (they are
+# not launches of their own)
 LAUNCHES = {"mega_trace": 0, "mega_trace_aux": 0, "stream_compact": 0, "stream_expand": 0,
-            "mega_bwd": 0, "winner_index": 0, "bvh_winner_index": 0, "denoise": 0,
-            "wavefront_bounce": 0}
+            "mega_bwd": 0, "winner_index": 0, "bvh_winner_index": 0,
+            "bvh_winner_index_live": 0, "denoise": 0, "wavefront_bounce": 0}
 
 
 def reset_launches():
@@ -139,10 +141,11 @@ _SIGNATURES = {
     "poca_winner_index": [_P] * 9 + [_P] + [_I] * 6 + [_P],
     # R n_rep tile_rows | info (registers, local bytes, blocks per SM, grid)
     "poca_winner_info": [_I] * 3 + [_P],
-    # o3 d3 tmin tmax nodes leaves rows gidx | out | R m n_leaves | stream
-    "poca_bvh_winner_index": [_P] * 12 + [_P] + [_I] * 3 + [_P],
-    # m n_leaves | info (registers, local bytes, blocks per SM, nodes in shared memory)
-    "poca_bvh_info": [_I] * 2 + [_P],
+    # o3 d3 tmin tmax nodes leaves rows gidx | alive first_t prev | out | R m n_leaves |
+    # stream
+    "poca_bvh_winner_index": [_P] * 12 + [_P] * 3 + [_P] + [_I] * 3 + [_P],
+    # m n_leaves live | info (registers, local bytes, blocks per SM, nodes in shared memory)
+    "poca_bvh_info": [_I] * 3 + [_P],
     # rad nrm dep out | H W stepwidth | stream
     "poca_denoise": [_P] * 4 + [_I] * 3 + [_P],
     # carry alive first gidx pix samp seed ts trt | R n_tab bounce | stream

@@ -17,6 +17,11 @@ grouped index, 0 when nothing is hit: the gather epilogue recomputes t
 and decides the hit.  The kernel needs tmax <= INF, which the layout's
 dropped padding rows rely on (``csrc/bvh.cuh``), and every caller in the
 package passes INF.
+
+From bounce 2 the wavefront path hands the walk a live set (`live`): only
+the lanes whose ray can still change are walked (:func:`walked_lanes`), and
+every other lane takes the previous bounce's winner, which is what its walk
+would return (the rule is argued in ``csrc/bvh.cu``'s header).
 """
 
 from __future__ import annotations
@@ -70,26 +75,44 @@ def bvh_leaf_layout(node_meta, node_aabb, leaf_objs, leaf_size):
     return nodes.contiguous(), leaves.contiguous(), rows, gidx
 
 
+def walked_lanes(alive, first_t):
+    """The lanes a walk with the live set (alive bool[R], first_t f32[R])
+    walks: those alive, and those whose path ended at bounce 0
+    (first_t not < INF), whose ray may still hit from bounce 1 on."""
+    return alive | ~(first_t < INF)
+
+
 def bvh_winner_index(o, d, tmin, tmax, node_meta, node_aabb, leaf_objs, *, leaf_size,
-                     layout=None):
+                     layout=None, live=None):
     """Grouped winner index i32[R] of planar rays (o, d tuples of f32[R];
     tmin, tmax f32[R]) by the skip-pointer walk over the tables.
 
     `layout` is :func:`bvh_leaf_layout` of the same tables, built here when
-    not given.  CUDA tensors launch ``csrc/bvh.cu``, whose precondition is
-    tmax <= INF: on a ray with a larger tmax that hits nothing it may
-    return another index than the plain version (the wrapper does not
-    check, which would cost a synchronisation per launch).  CPU tensors
-    take :func:`bvh_winner_index_plain`."""
+    not given.  `live` = (alive bool[R], first_t f32[R], prev i32[R]) is the
+    live set of a wavefront bounce b >= 2: alive and first_t as bounce b - 1
+    left them, prev its winners.  Only :func:`walked_lanes` are walked; the
+    other lanes take prev, the index their walk would return.
+
+    CUDA tensors launch ``csrc/bvh.cu``, whose precondition is tmax <= INF:
+    on a ray with a larger tmax that hits nothing it may return another
+    index than the plain version (the wrapper does not check, which would
+    cost a synchronisation per launch).  The returned plane is a view of a
+    buffer that also holds the launch's count of walked lanes
+    (:func:`walked_count`).  CPU tensors take
+    :func:`bvh_winner_index_plain`."""
     dev = tmin.device
     if dev.type == "cpu":
         return bvh_winner_index_plain(o, d, tmin, tmax, node_meta, node_aabb, leaf_objs,
-                                      leaf_size=leaf_size)
+                                      leaf_size=leaf_size, live=live)
     if dev.type != "cuda":
         raise ValueError(f"bvh_winner_index runs on cuda or cpu tensors, got {dev}")
     r = tmin.shape[0]
     for k, t in enumerate([*o, *d, tmin, tmax]):
         kb.require(t, f"ray plane {k}", torch.float32, (r,), dev)
+    if live is not None:
+        for name, t, dtype in zip(("alive", "first_t", "prev"), live,
+                                  (torch.bool, torch.float32, torch.int32)):
+            kb.require(t, name, dtype, (r,), dev)
     m = node_meta.shape[0]
     kb.require(node_meta, "node_meta", torch.int32, (m, 2), dev)
     kb.require(node_aabb, "node_aabb", torch.float32, (m, 8), dev)
@@ -105,15 +128,28 @@ def bvh_winner_index(o, d, tmin, tmax, node_meta, node_aabb, leaf_objs, *, leaf_
     kb.require(gidx, "layout gidx", torch.int32, (rows.shape[0],), dev)
     if any(t.data_ptr() % 16 for t in (nodes, leaves, rows)):
         raise ValueError("the walk's layout tables must be 16-byte aligned")
-    out = torch.empty((r + 1,), dtype=torch.int32, device=dev)  # word r: the ray counter
+    # word r: the ray counter; word r + 1: the lanes walked
+    out = torch.empty((r + 2,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = kb.library().poca_bvh_winner_index(
-            *[t.data_ptr() for t in (*o, *d, tmin, tmax, nodes, leaves, rows, gidx, out)],
-            r, m, n_leaves, kb.stream_handle(tmin),
+            *[t.data_ptr() for t in (*o, *d, tmin, tmax, nodes, leaves, rows, gidx)],
+            *map(kb.ptr, live or (None,) * 3), out.data_ptr(), r, m, n_leaves,
+            kb.stream_handle(tmin),
         )
     kb.check(err, "bvh_winner_index")
     kb.LAUNCHES["bvh_winner_index"] += 1
+    if live is not None:
+        kb.LAUNCHES["bvh_winner_index_live"] += 1
     return out[:r]
+
+
+def walked_count(gidx):
+    """The count of lanes walked (an i32 tensor of one element on the card)
+    by the launch that returned the winner plane `gidx`
+    (:func:`bvh_winner_index` on CUDA tensors): the word after the ray
+    counter in the plane's buffer."""
+    r = gidx.shape[0]
+    return gidx.as_strided((r + 2,), (1,), gidx.storage_offset())[r + 1:]
 
 
 def _inv(v):
@@ -186,16 +222,17 @@ def _leaf_t(rows, ray, tmax):
 
 
 def bvh_winner_index_plain(o, d, tmin, tmax, node_meta, node_aabb, leaf_objs, *, leaf_size,
-                           with_counts=False):
+                           with_counts=False, live=None):
     """Plain PyTorch version of :func:`bvh_winner_index`, on any device: a
     lock-step walk in which every lane keeps its own node pointer.  Each
     step gathers the lanes' nodes, slab-tests them, tests the K rows of
     the leaf at lanes that overlap one, and advances each lane (escape, or
-    node + 1 into an overlapping internal node).
+    node + 1 into an overlapping internal node).  With `live` only
+    :func:`walked_lanes` walk; the other lanes return prev.
 
     With `with_counts` it also returns what each lane's walk tested:
     slab tests i32[R] and leaf rows by type i32[4, R] (sphere, platform,
-    cylinder, padding)."""
+    cylinder, padding); a lane that did not walk tested nothing."""
     r = tmin.shape[0]
     dev = tmin.device
     m, k = node_meta.shape[0], leaf_size
@@ -217,6 +254,11 @@ def bvh_winner_index_plain(o, d, tmin, tmax, node_meta, node_aabb, leaf_objs, *,
     n_nodes = torch.zeros((r,), dtype=torch.int32, device=dev)
     n_rows = torch.zeros((4, r), dtype=torch.int32, device=dev)
     lanes = torch.arange(r, device=dev)
+    if live is not None:
+        alive, first_t, prev = live
+        walk = walked_lanes(alive, first_t)
+        best_i = torch.where(walk, best_i, prev)
+        lanes = lanes[walk]
     while True:
         lanes = lanes[node[lanes] < m]
         if lanes.numel() == 0:

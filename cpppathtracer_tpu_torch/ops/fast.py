@@ -106,13 +106,17 @@ def dense_index(gs, o, d, tmin, tmax):
     return winner_index(gs.counts, *_ray_planes(o, d, tmin, tmax), build_geom_rows(gs).detach())
 
 
-def closest_index(gs, o, d, tmin, tmax):
+def closest_index(gs, o, d, tmin, tmax, live=None):
     """Dense grouped winner index i32[R] of planar rays (o, d tuples of
     f32[R]): the BVH walk (``csrc/bvh.cu``) when :func:`use_bvh`, else
-    :func:`dense_index`.  Piecewise constant, so it carries no gradient."""
+    :func:`dense_index`.  `live`, a wavefront bounce's live set, lets the
+    walk skip the lanes whose winner cannot change
+    (``bvh_kernel.bvh_winner_index``); the dense search takes every lane.
+    Piecewise constant, so it carries no gradient."""
     if use_bvh(gs):
         return bvh_winner_index(*_ray_planes(o, d, tmin, tmax), gs.bvh_meta, gs.bvh_aabb,
-                                gs.bvh_objs, leaf_size=gs.bvh_dims[1], layout=gs.bvh_layout)
+                                gs.bvh_objs, leaf_size=gs.bvh_dims[1], layout=gs.bvh_layout,
+                                live=live)
     return dense_index(gs, o, d, tmin, tmax)
 
 

@@ -28,6 +28,7 @@ from cpppathtracer_tpu_torch.ops.cuda.bvh_kernel import (
     bvh_leaf_layout,
     bvh_winner_index,
     bvh_winner_index_plain,
+    walked_lanes,
 )
 from cpppathtracer_tpu_torch.ops.cuda.intersect_kernel import (
     build_geom_rows,
@@ -317,6 +318,91 @@ def test_bvh_walk_host_build_exact_ties(host_walk):
     print(f"{int(hit.sum())} of {win.numel()} lanes hit, {n_tied} of them on a tie, "
           f"{int(later.sum())} kept a tied object other than the lowest-indexed")
     assert int(hit.sum()) > win.numel() // 2 and n_tied > 100 and int(later.sum()) > 0
+
+
+# ---------------------------------------------------------- the live set
+
+# the planted lanes: alive; dead since bounce 0 (first_t INF, its ray may
+# have moved since); dead since a bounce >= 1 (first_t finite)
+LIVE_KINDS = {"alive": 0, "dead-since-bounce-0": 1, "dead-since-bounce-k": 2}
+
+
+@pytest.mark.parametrize("lanes", [*LIVE_KINDS, "mixed"])
+def test_bvh_walk_live_set_rule(lanes):
+    """The live set's rule on planted planes over the random rays of
+    big_scene(200): live lanes and lanes dead since bounce 0 are walked
+    (the walk of every lane's index), a lane dead since a bounce >= 1
+    takes prev unwalked (no slab test), in the plain version and through
+    the wrapper on CPU tensors."""
+    n, o, d = _random_rays()
+    gs = fast.group_scene(presets.big_scene(n, bvh=True, device="cpu"))
+    r = o.shape[0]
+    ray = (tuple(_t(o[:, i]) for i in range(3)), tuple(_t(d[:, i]) for i in range(3)),
+           torch.zeros(r), torch.full((r,), INF))
+    tables = (gs.bvh_meta, gs.bvh_aabb, gs.bvh_objs)
+    k = gs.bvh_dims[1]
+    g = torch.Generator().manual_seed(26)
+    kind = (torch.randint(0, 3, (r,), generator=g) if lanes == "mixed"
+            else torch.full((r,), LIVE_KINDS[lanes]))
+    alive = kind == 0
+    first_t = torch.where(kind == 1, INF, 1.0 + 99.0 * torch.rand(r, generator=g))
+    # no object has such an index, so a lane that took prev shows it
+    prev = torch.randint(2**20, 2**21, (r,), generator=g, dtype=torch.int32)
+    live = (alive, first_t, prev)
+    walked = kind < 2
+    assert torch.equal(walked_lanes(alive, first_t), walked)
+    ref, ref_nodes, _ = bvh_winner_index_plain(*ray, *tables, leaf_size=k, with_counts=True)
+    got, nodes, rows = bvh_winner_index_plain(*ray, *tables, leaf_size=k, with_counts=True,
+                                              live=live)
+    assert torch.equal(got, torch.where(walked, ref, prev))
+    assert torch.equal(nodes, torch.where(walked, ref_nodes, 0))
+    assert int(rows[:, ~walked].abs().sum()) == 0
+    assert torch.equal(bvh_winner_index(*ray, *tables, leaf_size=k, live=live), got)
+    if lanes != "dead-since-bounce-k":
+        assert int((got > 0).sum()) > r // 4
+
+
+def test_bvh_walk_live_set_matches_every_lane(monkeypatch):
+    """The walk with the live set, as integrator._trace_fused hands it from
+    bounce 2, equals the walk of every lane bounce by bounce: the paths of
+    big_scene(2048) at 16x12 x 2 spp x d8 through the PyTorch body
+    (trace_bounces_p, whose walks take every lane), each bounce's rays
+    walked again with the live set of the bounce before."""
+    from cpppathtracer_tpu_torch.integrator import trace_bounces_p
+    from cpppathtracer_tpu_torch.utils.rng import sample_key
+
+    gs = fast.group_scene(presets.big_scene(2048, device="cpu"))
+    cam = presets.big_camera(2048, 16, 12, device="cpu")
+    tables = (gs.bvh_meta, gs.bvh_aabb, gs.bvh_objs)
+    k = gs.bvh_dims[1]
+    real = fast.closest_index
+    rays = []
+
+    def recording(gs, o, d, tmin, tmax, live=None):
+        assert live is None
+        rays.append((o, d, tmin, tmax))
+        return real(gs, o, d, tmin, tmax)
+
+    monkeypatch.setattr(fast, "closest_index", recording)
+    r, depth = 16 * 12, 8
+    pix = torch.arange(r, dtype=torch.int32)
+    skipped = []
+    for s in range(2):
+        rays.clear()
+        samp = sample_key(s, r, pix.device)
+        o, d = cam.ray_gen_planar(pix, samp, 26)
+        *_, first_t, gidxs, hits = trace_bounces_p(gs, (o, d), pix, samp, 26, depth)
+        assert len(rays) == depth
+        alive = torch.ones(r, dtype=torch.bool)
+        for b in range(depth):
+            if b >= 2:
+                live = (alive, first_t, gidxs[b - 1])
+                got = bvh_winner_index(*rays[b], *tables, leaf_size=k, live=live)
+                assert torch.equal(got, gidxs[b]), (s, b)
+                skipped.append(int((~walked_lanes(alive, first_t)).sum()))
+            alive = alive & hits[b]
+    print(f"lanes not walked at bounces 2-{depth - 1} of 2 samples of {r}: {skipped}")
+    assert skipped[-1] > r // 2
 
 
 @pytest.mark.parametrize("bvh", ["1", "0"], ids=["bvh", "dense"])

@@ -432,7 +432,8 @@ def test_bench_step_matches_loss_grads_on_card(dev):
     assert chip_smoke.same_fields(scene, s0) and chip_smoke.same_fields(camera, cam)
     assert torch.equal(sky, sky0)
     want = dict(mega_trace=4, mega_trace_aux=0, stream_compact=2, stream_expand=2, mega_bwd=2,
-                winner_index=0, bvh_winner_index=0, denoise=0, wavefront_bounce=0)
+                winner_index=0, bvh_winner_index=0, bvh_winner_index_live=0, denoise=0,
+                wavefront_bounce=0)
     kb.reset_launches()
     step()  # the compiled step's first call: its warm-up runs eagerly, then a replay
     torch.cuda.synchronize()
@@ -609,7 +610,8 @@ def _nodes_in_smem(scene):
 
     info = (ctypes.c_int * 4)()
     m, k = scene.bvh_dims
-    assert kb.library().poca_bvh_info(m, scene.bvh_objs.shape[0] // k, ctypes.addressof(info)) == 0
+    assert kb.library().poca_bvh_info(m, scene.bvh_objs.shape[0] // k, 0,
+                                      ctypes.addressof(info)) == 0
     return bool(info[3])
 
 
@@ -668,6 +670,157 @@ def test_bvh_winner_index_exact_ties_on_card(dev):
     scene = tie_scene(dev)
     _check_walk(tie_rays(1 << 16, dev), (scene.bvh_meta, scene.bvh_aabb, scene.bvh_objs),
                 scene.bvh_dims[1])
+
+
+def _fused_walks(dev, monkeypatch, spp, depth):
+    """Every walk of a render_radiance of big_scene(16384) at 256^2 x spp x
+    depth (serving, so integrator._trace_fused): a copy of each call's rays
+    and live set (None at bounces 0 and 1; alive is updated in place after
+    the walk) and its winners.  Returns (scene, calls, LAUNCHES after the
+    render)."""
+    from cpppathtracer_tpu_torch.integrator import render_radiance
+    from cpppathtracer_tpu_torch.models.presets import big_camera, big_scene
+    from cpppathtracer_tpu_torch.ops.texture import procedural_sky
+
+    scene = big_scene(16384, device=dev)
+    calls = []
+    real = fast.bvh_winner_index
+
+    def recording(o, d, tmin, tmax, *tables, live=None, **kw):
+        kept = None if live is None else tuple(t.clone() for t in live)
+        got = real(o, d, tmin, tmax, *tables, live=live, **kw)
+        calls.append(((tuple(c.clone() for c in o), tuple(c.clone() for c in d), tmin.clone(),
+                       tmax.clone()), kept, got.clone(), int(bvh_kernel.walked_count(got))))
+        return got
+
+    monkeypatch.setattr(fast, "bvh_winner_index", recording)
+    sky = torch.from_numpy(procedural_sky(64, 64)).to(dev)
+    kb.reset_launches()
+    with torch.no_grad():
+        render_radiance(scene, big_camera(16384, 256, 256, device=dev), sky, spp=spp,
+                        max_depth=depth, seed=26)
+    torch.cuda.synchronize()
+    launches = dict(kb.LAUNCHES)
+    monkeypatch.undo()
+    return scene, calls, launches
+
+
+@pytest.mark.gpu
+def test_bvh_walk_live_set_matches_every_lane_on_card(dev, monkeypatch):
+    """On big_scene(16384) at 256^2 x 2 spp x d8, the walk as
+    integrator._trace_fused launches it (the live set from bounce 2) gives
+    at every bounce the bits of the walk of every lane on the same rays;
+    it launches once a bounce, (depth - 2) x chunks of them with a live set;
+    its walked-lane word is R without a live set and the count of
+    walked_lanes with one."""
+    scene, calls, launches = _fused_walks(dev, monkeypatch, 2, 8)
+    assert launches["bvh_winner_index"] == 16 and launches["bvh_winner_index_live"] == 12
+    tables = (scene.bvh_meta, scene.bvh_aabb, scene.bvh_objs)
+    k = scene.bvh_dims[1]
+    r = 256 * 256
+    shares = []
+    for b, (ray, live, got, walked) in enumerate(calls):
+        assert (live is None) == (b % 8 < 2)
+        every = bvh_kernel.bvh_winner_index(*ray, *tables, leaf_size=k)
+        assert int(bvh_kernel.walked_count(every)) == r
+        assert torch.equal(got, every), b
+        want = r if live is None else int(bvh_kernel.walked_lanes(*live[:2]).sum())
+        assert walked == want, (b, walked, want)
+        shares.append(round(walked / r, 4))
+    print(f"walked share a bounce: {shares}")
+    assert max(shares[2:8]) < 0.5 and shares[0] == 1.0
+
+
+@pytest.mark.gpu
+def test_bvh_walk_live_set_random_planes_on_card(dev, monkeypatch):
+    """Random alive, first_t (a third INF) and prev planes on bounce 2's
+    rays of big_scene(16384), 256^2 - 25 lanes (the last warp's chunk
+    partly past R): the kernel with the live set equals the plain rule,
+    torch.where(walked, the plain walk, prev), bitwise, and counts the
+    walked lanes."""
+    scene, calls, _ = _fused_walks(dev, monkeypatch, 1, 3)
+    tables = (scene.bvh_meta, scene.bvh_aabb, scene.bvh_objs)
+    k = scene.bvh_dims[1]
+    r = 256 * 256 - 25
+    o, d, tmin, tmax = calls[2][0]
+    ray = (tuple(c[:r].contiguous() for c in o), tuple(c[:r].contiguous() for c in d),
+           tmin[:r].contiguous(), tmax[:r].contiguous())
+    g = torch.Generator(device=dev).manual_seed(26)
+    for p_alive in (0.05, 0.3, 0.9):
+        alive = torch.rand(r, device=dev, generator=g) < p_alive
+        first_t = torch.where(torch.rand(r, device=dev, generator=g) < 1 / 3, INF,
+                              torch.rand(r, device=dev, generator=g) * 100)
+        prev = torch.randint(2**20, 2**21, (r,), device=dev, generator=g, dtype=torch.int32)
+        live = (alive, first_t, prev)
+        kb.reset_launches()
+        got = bvh_kernel.bvh_winner_index(*ray, *tables, leaf_size=k, live=live)
+        torch.cuda.synchronize()
+        assert kb.LAUNCHES["bvh_winner_index"] == kb.LAUNCHES["bvh_winner_index_live"] == 1
+        walked = bvh_kernel.walked_lanes(alive, first_t)
+        ref = bvh_kernel.bvh_winner_index_plain(*ray, *tables, leaf_size=k, live=live)
+        assert torch.equal(ref, torch.where(walked, bvh_kernel.bvh_winner_index_plain(
+            *ray, *tables, leaf_size=k), prev))
+        assert torch.equal(got, ref), p_alive
+        assert int(bvh_kernel.walked_count(got)) == int(walked.sum())
+
+
+@pytest.mark.gpu
+def test_bvh_render_jit_live_set_matches_every_lane_on_card(dev, monkeypatch):
+    """render_radiance_jit of big_scene(16384) at 256^2 x 2 spp x d8 equals,
+    bitwise, the same compiled render with the walk of every lane at every
+    bounce (the live set dropped); a replay launches the walk 16 times, 12
+    of them with a live set."""
+    from cpppathtracer_tpu_torch.integrator import RENDER_GRAPHS, render_radiance_jit
+    from cpppathtracer_tpu_torch.models.presets import big_camera, big_scene
+    from cpppathtracer_tpu_torch.ops.texture import procedural_sky
+
+    scene = big_scene(16384, device=dev)
+    cam = big_camera(16384, 256, 256, device=dev)
+    sky = torch.from_numpy(procedural_sky(64, 64)).to(dev)
+    kw = dict(spp=2, max_depth=8, seed=26)
+    RENDER_GRAPHS.clear()
+    with torch.no_grad():
+        render_radiance_jit(scene, cam, sky, **kw)
+        kb.reset_launches()
+        got = render_radiance_jit(scene, cam, sky, **kw)
+        torch.cuda.synchronize()
+        assert kb.LAUNCHES["bvh_winner_index"] == 16
+        assert kb.LAUNCHES["bvh_winner_index_live"] == 12
+        RENDER_GRAPHS.clear()
+        real = fast.bvh_winner_index
+        monkeypatch.setattr(fast, "bvh_winner_index",
+                            lambda *a, live=None, **k: real(*a, **k))
+        ref = render_radiance_jit(scene, cam, sky, **kw)
+        kb.reset_launches()
+        ref = render_radiance_jit(scene, cam, sky, **kw)
+        torch.cuda.synchronize()
+        assert kb.LAUNCHES["bvh_winner_index"] == 16
+        assert kb.LAUNCHES["bvh_winner_index_live"] == 0
+    RENDER_GRAPHS.clear()
+    assert _bits_equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leaf_size", [None, 8], ids=["auto", "leaf8"])
+def test_bvh_walk_kernel_info_on_card(dev, leaf_size):
+    """The walk's four instances (nodes in shared memory or not, with a
+    live set or not) on big_scene(16384)'s tables (K = 64, in shared
+    memory; K = 8, 160 KB, not): registers, local bytes and resident
+    blocks of 256 threads an SM.  None spills (no local memory)."""
+    import ctypes
+
+    from cpppathtracer_tpu_torch.models.presets import big_scene
+
+    scene = big_scene(16384, bvh=False, device=dev).with_bvh(leaf_size)
+    m, k = scene.bvh_dims
+    for live in (0, 1):
+        info = (ctypes.c_int * 4)()
+        assert kb.library().poca_bvh_info(m, scene.bvh_objs.shape[0] // k, live,
+                                          ctypes.addressof(info)) == 0
+        regs, local, per_sm, shared = list(info)
+        print(f"K {k}, live {live}: {regs} registers, {local} local bytes, {per_sm} blocks an "
+              f"SM, nodes in shared memory {bool(shared)}")
+        assert local == 0 and per_sm >= 1 and bool(shared) == (leaf_size is None)
 
 
 @pytest.mark.gpu
