@@ -5,12 +5,13 @@ Each cell is `benchmark/workloads/<cell>.json`; it names its configuration,
 `benchmark/configs/<config>.json`, its traffic kind, whose generator is
 `benchmark/traffic/<kind>.py`, and its render settings (its own, or one of
 its configuration's by name).  A configuration's scene or sky generator
-that is not one of the frozen built-ins (`reference/scenes.py`) is
-`benchmark/scenes/<generator>.py`.  Each per-layer metric is read by
-`benchmark/layers/<metric>.py`, and each kernel's operations and bytes are
-counted by `benchmark/roofline/<kernel>.py`.  A later change adds a cell,
-a configuration with its own scene, sky and lens, a traffic kind, a metric
-or a kernel by adding such files and entries.
+that is not one of the frozen built-ins (`reference/scenes.py`), and the
+generator of its albedo textures, is `benchmark/scenes/<generator>.py`.
+Each per-layer metric is read by `benchmark/layers/<metric>.py`, and each
+kernel's operations and bytes are counted by `benchmark/roofline/<kernel>.py`.
+A later change adds a cell, a configuration with its own scene, sky, lens and
+textures, a traffic kind, a metric or a kernel by adding such files and
+entries.
 """
 
 from __future__ import annotations
@@ -79,10 +80,11 @@ def traffic(kind: str):
 
 
 def scene_part(generator: str, part: str):
-    """(function, file) of a configuration's own scene or sky generator:
-    `part` ("scene" or "sky") of `benchmark/scenes/<generator>.py`, where
-    scene(**args) gives arrays in `reference/scenes.py`'s FIELDS layout and
-    sky(**args) a map f32[H, W, 3]."""
+    """(function, file) of a configuration's own scene, sky or texture
+    generator: `part` ("scene", "sky" or "textures") of
+    `benchmark/scenes/<generator>.py`, where scene(**args) gives arrays in
+    `reference/scenes.py`'s FIELDS layout, sky(**args) a map f32[H, W, 3]
+    and textures(**args) a stack f32[T, H, W, 3]."""
     path = BENCH_DIR / "scenes" / f"{_name('scene', generator)}.py"
     fn = getattr(_module(path, f"bench_scene_{generator}".replace("-", "_").replace(".", "_")),
                  part, None)

@@ -138,9 +138,23 @@ def cell_settings(wl: dict, cfg: dict) -> dict:
     return dict(s)
 
 
+def check_textures_passed(wl: dict, cfg: dict):
+    """A configuration that brings textures runs only under a traffic kind
+    that declares that it hands them to the program (`TEXTURES = True` in
+    its file); any other would render it untextured, so set-up stops with
+    an error that names both files."""
+    if cfg.get("textures") is None or getattr(registry.traffic(wl["traffic"]), "TEXTURES", False):
+        return
+    raise ValueError(
+        f"benchmark/configs/{cfg['name']}.json brings textures and "
+        f"benchmark/traffic/{wl['traffic']}.py does not declare that it passes them "
+        f"(TEXTURES = True): workloads/{wl['name']}.json would render it untextured")
+
+
 def make_context(cell: str, seed: int, seconds: float, trace_on: bool, devices) -> Context:
     wl = registry.workload(cell)
     cfg = registry.config(wl["config"])
+    check_textures_passed(wl, cfg)
     return Context(cell=cell, workload=wl, config=cfg, seed=int(seed), seconds=float(seconds),
                    trace=trace_on, devices=list(devices), settings=cell_settings(wl, cfg))
 

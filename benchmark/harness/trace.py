@@ -57,11 +57,13 @@ def reduce_events(events: list, window_s: float) -> dict:
     """The traced window's numbers from Chrome-trace events: busy_s (the
     mean over cards of the union of device records inside the window span),
     ops ({CUDA function or op name: device seconds}, summed over cards),
-    device_ops and idle_gaps (the ten largest, as [name, seconds])."""
+    names (the same by the records' full names, template arguments
+    included), device_ops and idle_gaps (the ten largest, as [name,
+    seconds])."""
     win = [e for e in events if e.get("name") == WINDOW_SPAN and e.get("ph") == "X"]
     lo, hi = ((win[0]["ts"], win[0]["ts"] + win[0]["dur"]) if win
               else (-float("inf"), float("inf")))
-    by_dev, ops = {}, {}
+    by_dev, ops, names = {}, {}, {}
     for e in events:
         if e.get("cat") not in DEVICE_CATS or e.get("ph") != "X":
             continue
@@ -76,6 +78,7 @@ def reduce_events(events: list, window_s: float) -> dict:
         by_dev.setdefault(dev, []).append((s, t))
         fn = function_of(name)
         ops[fn] = ops.get(fn, 0.0) + (t - s) / 1e6
+        names[name] = names.get(name, 0.0) + (t - s) / 1e6
     merged = {dev: _union(iv) for dev, iv in by_dev.items()}
     busy = [sum(e - s for s, e in m) / 1e6 for m in merged.values()]
     busy_s = sum(busy) / len(busy) if busy else 0.0
@@ -99,6 +102,7 @@ def reduce_events(events: list, window_s: float) -> dict:
         "window_s": window_s,
         "cards": max(1, len(merged)),
         "ops": ops,
+        "names": names,
         "device_ops": [[k, v] for k, v in top_ops],
         "idle_gaps": [[name, d / 1e6] for d, name in gaps],
     }
@@ -153,6 +157,7 @@ class TraceView:
         self.window_s = reduced["window_s"]
         self.cards = reduced["cards"]
         self.ops = reduced["ops"]
+        self.names = reduced.get("names", {})
         self.work = work
         self.config, self.workload = config, workload
         self.roofline, self.peaks = roofline, peaks
@@ -166,6 +171,10 @@ class TraceView:
 
     def kernel_s(self, function: str) -> float:
         return self.ops.get(function, 0.0)
+
+    def named_s(self, match) -> float:
+        """Device seconds of the records whose full name `match` accepts."""
+        return sum(v for name, v in self.names.items() if match(name))
 
     def hand_written_s(self) -> float:
         return sum(self.ops.get(f, 0.0) for f in HAND_WRITTEN)

@@ -10,7 +10,8 @@ compares, of the program against the float32 reference.  For each seed of
 --control-seeds: the same numbers of the control, the reference computed
 in bfloat16, put in the program's place; with --faults also those of each
 fault the traffic kind plants in the reference (its FAULTS: a training step
-that leaves half its batch out).  --search reads the program against the
+that leaves half its batch out; a textured step's albedo left untextured or
+its taps clamped).  --search reads the program against the
 reference searching in the other form of the closest-hit tests than the
 configuration's (`reference/tracer.py`).  --counts prints the work a
 sample needs on the cell's inputs, as the reference counts it (live

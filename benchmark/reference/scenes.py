@@ -9,14 +9,16 @@ scene, `cppSrc/video_renderer.cpp:39-118`), `big_scene(n, seed=7)` (the
 `procedural_sky(256, 256)`.  A configuration that brings a scene or a sky
 of its own adds it as a file, `benchmark/scenes/<generator>.py`, found by
 `harness/registry.py` and checked here (`check_scene`, `check_sky`); this
-file is not edited for it.  Both the program and the plain reference are
-built from these arrays.
+file is not edited for it.  A configuration may also bring a stack of
+albedo textures, f32[T, H, W, 3], from such a file (`textures(**args)`,
+checked by `check_textures`); its objects then pick one by `tex_id`.  Both
+the program and the plain reference are built from these arrays.
 
 A scene is a dict of arrays over N objects, in the order the generator adds
 them: prim_type i32 (0 sphere, 1 platform, 2 cylinder), center f32[N, 3],
 radius, y_pos, height f32, mat_type i32 (0 diffuse, 1 metal, 2 mirror,
 3 glass), kd f32[N, 3], emission, smoothness, reflectivity, ior f32, tex_id
-i32 (-1: no texture).
+i32 (-1: no texture; t in [0, T): texture t of the configuration's stack).
 """
 
 from __future__ import annotations
@@ -182,12 +184,13 @@ VECTORS = ("center", "kd")
 LENS_RADIUS = 5e-4  # the port's `Camera.make` and the reference's `tracer.Camera` default
 
 
-def check_scene(arrays, where: str) -> dict:
+def check_scene(arrays, where: str, textures: int = 0) -> dict:
     """`arrays` when it is a scene in FIELDS' layout: exactly those keys,
     each a NumPy array of its dtype with one row an object, finite, the
-    kinds and material codes in range and no texture (the reference has
-    none); otherwise a ValueError that names `where`, the generator's
-    file."""
+    kinds and material codes in range, and each tex_id -1 or, where the
+    configuration brings a stack of `textures` textures, in [0, textures);
+    without a stack every tex_id is -1 (nothing to sample); otherwise a
+    ValueError that names `where`, the generator's file."""
     def bad(why):
         raise ValueError(f"{where}: {why}")
 
@@ -210,9 +213,24 @@ def check_scene(arrays, where: str) -> dict:
         bad("a prim_type outside 0 sphere, 1 platform, 2 cylinder")
     if not np.isin(arrays["mat_type"], (DIFFUSE, METAL, MIRROR, GLASS)).all():
         bad("a mat_type outside 0 diffuse, 1 metal, 2 mirror, 3 glass")
-    if (arrays["tex_id"] != -1).any():
-        bad("a tex_id other than -1: the reference has no textures")
+    tid = arrays["tex_id"]
+    if ((tid < -1) | (tid >= textures)).any():
+        bad(f"a tex_id outside -1 and the {textures} textures of the configuration's stack"
+            if textures else "a tex_id other than -1, and the configuration brings no textures")
     return arrays
+
+
+def check_textures(tex, where: str) -> np.ndarray:
+    """`tex` when it is a stack of albedo textures f32[T, H, W, 3], T >= 1,
+    of finite, non-negative values; otherwise a ValueError that names
+    `where`."""
+    if not (isinstance(tex, np.ndarray) and tex.dtype == np.float32 and tex.ndim == 4
+            and tex.shape[0] >= 1 and tex.shape[1] > 0 and tex.shape[2] > 0
+            and tex.shape[3] == 3):
+        raise ValueError(f"{where}: a texture stack is a NumPy array f32[T, H, W, 3], T >= 1")
+    if not (np.isfinite(tex).all() and (tex >= 0).all()):
+        raise ValueError(f"{where}: a texture holds a value that is negative or not finite")
+    return tex
 
 
 def check_sky(sky, where: str) -> np.ndarray:

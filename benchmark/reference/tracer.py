@@ -12,9 +12,9 @@ its own: the closest hit is a dense search over every object of each
 primitive type (no BVH, no kernel), the sky is the plain four-tap bilinear
 fetch with mirror addressing, only live paths are traced, and the radiance
 of a path can be kept as a record (the objects hit, whether each bounce
-attenuates, the sky seen) so that a loss over kd and emission can be
-differentiated by a small recurrence: a path's geometry does not depend on
-either.
+attenuates, the sky seen, and on a textured scene each hit's position) so
+that a loss over kd, emission and the textures can be differentiated by a
+small recurrence: a path's geometry does not depend on any of them.
 
 The search takes one of two forms of the same tests, as the configuration
 states (`search`): `direct` (sphere b = (o - c).d, the form of the BVH
@@ -129,7 +129,8 @@ def div_exact(x, c: float):
 
 class Scene:
     """A scene's arrays on `device` in `dtype`, and each primitive type's
-    objects (their indices in the scene's order) for the dense search."""
+    objects (their indices in the scene's order) for the dense search;
+    `textured` where some object picks a texture (tex_id >= 0)."""
 
     def __init__(self, arrays: dict, device, dtype, search: str = "direct"):
         if search not in ("direct", "expanded"):
@@ -138,7 +139,8 @@ class Scene:
         self.dtype, self.device = dtype, torch.device(device)
         f = lambda k: torch.as_tensor(np.asarray(arrays[k]), device=device).to(dtype)
         i = lambda k: torch.as_tensor(np.asarray(arrays[k]), device=device).to(torch.int32)
-        self.prim_type, self.mat_type = i("prim_type"), i("mat_type")
+        self.prim_type, self.mat_type, self.tex_id = i("prim_type"), i("mat_type"), i("tex_id")
+        self.textured = bool((np.asarray(arrays["tex_id"]) >= 0).any())
         c = f("center")
         self.center = (c[:, 0].contiguous(), c[:, 1].contiguous(), c[:, 2].contiguous())
         self.radius, self.y_pos, self.height = f("radius"), f("y_pos"), f("height")
@@ -508,12 +510,14 @@ class Paths:
     """What `trace` keeps of R paths: the radiance (without the sky), the
     sky seen by the escaped paths times their throughput, the first hit's
     normal and t, and, when asked, the record of each bounce (the object
-    of each live hit, -1 otherwise, and whether it attenuates) and the sky
-    seen by the escaped paths."""
+    of each live hit, -1 otherwise, whether it attenuates, and on a
+    textured scene the hit's position, planar, 0 off a live hit) and the
+    sky seen by the escaped paths."""
 
     def __init__(self, rad, first_n, first_t, objs=None, atten=None, sky=None, live=0):
         self.rad, self.first_n, self.first_t = rad, first_n, first_t
         self.objs, self.atten, self.sky = objs, atten, sky
+        self.pos = None
         self.live_ray_bounces = live
 
 
@@ -534,6 +538,8 @@ def trace(scene: Scene, camera: Camera, sky, pix, samp, seed: int, depth: int,
     alive = torch.ones(r, dtype=torch.bool, device=dev)
     objs = torch.full((depth, r), -1, dtype=torch.int32, device=dev) if record else None
     atten = torch.zeros((depth, r), dtype=torch.bool, device=dev) if record else None
+    pos = (torch.zeros((depth, 3, r), dtype=dt, device=dev) if record and scene.textured
+           else None)
     live = hits = 0
     for b in range(depth):
         act = torch.nonzero(alive).squeeze(1) if b else torch.arange(r, device=dev)
@@ -572,7 +578,10 @@ def trace(scene: Scene, camera: Camera, sky, pix, samp, seed: int, depth: int,
         ts = torch.where(hit, t, zero)
         nd = normalize(bounce)
         for k in range(3):
-            o[k][act] = torch.where(hit, oa[k] + da[k] * ts, oa[k])
+            p_k = oa[k] + da[k] * ts
+            if pos is not None:
+                pos[b, k, act] = torch.where(hit, p_k, zero)
+            o[k][act] = torch.where(hit, p_k, oa[k])
             d[k][act] = torch.where(hit, nd[k], da[k])
         alive[act] = hit
     missed = ~alive
@@ -582,15 +591,17 @@ def trace(scene: Scene, camera: Camera, sky, pix, samp, seed: int, depth: int,
     out = Paths(rad_v, torch.stack(first_n, dim=-1), first_t, live=live)
     out.hits = hits
     if record:
-        out.objs, out.atten, out.sky = objs, atten, sky_val
+        out.objs, out.atten, out.sky, out.pos = objs, atten, sky_val, pos
     return out
 
 
-def replay_radiance(paths: Paths, kd, emission):
+def replay_radiance(paths: Paths, kd, emission, albedo=None):
     """The radiance of recorded paths as a function of kd f[N, 3] and
     emission f[N] (the recurrence rad += thru * emission_b * kd_b, thru *=
-    kd_b where the bounce attenuates, the sky times the final throughput),
-    differentiable in both."""
+    A_b where the bounce attenuates, the sky times the final throughput),
+    differentiable in both.  A_b is kd_b, or `albedo(b, idx, kd_b)` where
+    given (a textured albedo, `reference/textured.py`); the emission term
+    keeps the raw kd, as `material.cu:36` does."""
     r = paths.objs.shape[1]
     thru = torch.ones((r, 3), dtype=kd.dtype, device=kd.device)
     rad = torch.zeros((r, 3), dtype=kd.dtype, device=kd.device)
@@ -605,7 +616,8 @@ def replay_radiance(paths: Paths, kd, emission):
         lv = live.to(kd.dtype)[:, None]
         rad = rad + thru * (kd_b * em_b[:, None]) * lv
         on = paths.atten[b].to(kd.dtype)[:, None]
-        thru = torch.where(live[:, None], thru * kd_b * on, thru)
+        att = kd_b if albedo is None else albedo(b, idx, kd_b)
+        thru = torch.where(live[:, None], thru * att * on, thru)
     return rad + thru * paths.sky.to(kd.dtype)
 
 

@@ -243,7 +243,8 @@ def test_frozen_inputs_keep_their_bytes(what, make, digest):
 def test_frozen_inputs_pass_their_checks():
     for entry in BENCH["configs"]:
         cfg = registry.config(entry["name"])
-        inputs.make_scene(cfg["scene"])
+        tex = inputs.make_textures(cfg["textures"]) if "textures" in cfg else None
+        inputs.make_scene(cfg["scene"], 0 if tex is None else tex.shape[0])
         inputs.make_sky(cfg["sky"])
     assert scenes.make_camera({"generator": "big_camera", "n": 16384}) == dict(
         scenes.big_camera(16384), lens_radius=5e-4)

@@ -61,6 +61,18 @@ def _mesh_spans():
     return out
 
 
+def _grad_spans():
+    """Three steps of `bench.train_step_jit`, the third the labelling
+    pass's: an entry, a copy in and a replay a step, each a root call of
+    its own (the step opens no root span)."""
+    out = []
+    for i, (t0, copy_ms) in enumerate(((0.0, 2.0), (300.0, 1.0), (600.0, 9.0))):
+        out += [_span("graphs.entry", t0, t0 + 1, -1, 3 * i),
+                _span("graphs.copy_in", t0 + 1, t0 + 1 + copy_ms, -1, 3 * i + 1),
+                _span("graphs.replay", t0 + 12, t0 + 280, -1, 3 * i + 2)]
+    return out
+
+
 @pytest.mark.parametrize("metric,records,want", [
     # (1 + 3) and (0.5 + 3.5) ms of the two traced frames' move and frame
     ("call_host_ms.serve", _flight_spans, 4.0),
@@ -76,6 +88,9 @@ def _mesh_spans():
                                   _span("graphs.copy_in", 1, 2.5, 0, 0),
                                   _span("graphs.replay", 3, 4, 0, 0)], 1.5),
     ("call_host_ms.serve", list, None),
+    ("copy_in_ms.grad", _grad_spans, (2.0 + 1.0) / 2),
+    ("copy_in_ms.grad", lambda: [_span("train.step", 0, 30, -1, 0)], None),
+    ("call_host_ms.train", _grad_spans, None),
 ])
 def test_program_span_readers(metric, records, want, monkeypatch):
     """Each reader of the port's spans on hand-built records: the first
